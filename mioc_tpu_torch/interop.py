@@ -1,0 +1,72 @@
+"""Carrying state across from the JAX package.
+
+The functions take ``mioc_tpu``'s data as numpy arrays (or plain numbers) and
+build the port's objects, so a test can feed both packages the same problem
+and hold their outputs together.  Nothing here imports JAX or ``mioc_tpu``:
+the caller converts with ``np.asarray``.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from ._device import resolve_device
+from .models.fishing import LVMObj
+from .ops.levels import AdmissibleSet
+
+__all__ = ["LVM_PARAMS", "admissible_from_arrays", "lvm_from_params",
+           "tables_from_pallas"]
+
+# The numeric parameters that define a fishing problem (attributes of
+# ``mioc_tpu.models.LVMObj``).
+LVM_PARAMS = ("alpha", "beta", "gamma", "delta", "c1", "c2", "v1", "v2",
+              "state0", "nt", "T0", "T1")
+
+
+def admissible_from_arrays(V, indices, levels) -> AdmissibleSet:
+    """The port's admissible set from the ragged level lists ``V`` and the
+    enumerated ``indices (L, M)`` / ``levels (L, M)`` arrays."""
+    return AdmissibleSet(
+        V=tuple(tuple(v) for v in V),
+        indices=np.asarray(indices, dtype=np.int32),
+        levels=np.asarray(levels, dtype=np.float64),
+    )
+
+
+def lvm_from_params(params: Mapping, *, device=None, dtype=None) -> LVMObj:
+    """A port :class:`~mioc_tpu_torch.models.LVMObj` with the numeric
+    parameters ``params`` (keys :data:`LVM_PARAMS`, values numbers or numpy
+    arrays)."""
+    missing = [k for k in LVM_PARAMS if k not in params]
+    if missing:
+        raise KeyError(f"missing fishing parameters: {missing}")
+    p = {k: np.asarray(params[k]) for k in LVM_PARAMS}
+    return LVMObj(
+        int(p["nt"]),
+        alpha=float(p["alpha"]), beta=float(p["beta"]),
+        gamma=float(p["gamma"]), delta=float(p["delta"]),
+        c1=float(p["c1"]), c2=float(p["c2"]),
+        v1=p["v1"], v2=p["v2"], state0=p["state0"],
+        T0=float(p["T0"]), T1=float(p["T1"]),
+        device=device, dtype=dtype,
+    )
+
+
+def tables_from_pallas(U, phi0, *, nt: int, L: int, B: int, device=None):
+    """DP tables in the Pallas padded layout — ``U (T ≥ nt-1, Lp, Bp)``,
+    ``phi0 (Lp, Bp)`` — sliced to the port's exact ``(nt-1, L, B+1)`` /
+    ``(L, B+1)``, as contiguous tensors of the same element types on
+    ``device`` (``None`` means ``"cuda"``, as for every entry point)."""
+    U = np.asarray(U)
+    phi0 = np.asarray(phi0)
+    if U.shape[0] < nt - 1 or U.shape[1] < L or U.shape[2] < B + 1:
+        raise ValueError(f"U {U.shape} is smaller than ({nt - 1}, {L}, {B + 1})")
+    if phi0.shape[0] < L or phi0.shape[1] < B + 1:
+        raise ValueError(f"phi0 {phi0.shape} is smaller than ({L}, {B + 1})")
+    dev = resolve_device(device)
+    U_t = torch.from_numpy(np.ascontiguousarray(U[: nt - 1, :L, : B + 1])).to(dev)
+    phi_t = torch.from_numpy(np.ascontiguousarray(phi0[:L, : B + 1])).to(dev)
+    return U_t, phi_t

@@ -1,0 +1,158 @@
+"""Objective protocol: lazy and all-at-once evaluation with caching/counters.
+
+Counterpart of ``mioc_tpu.objectives.base`` (the reference's
+``AbstractObjective.jl``).  Two evaluation protocols:
+
+* :class:`LazyObjective` (``AbstractObjectiveLazy``, :70-110): ``f`` and ``df``
+  are computed separately; ``eval_f_`` caches forward state for a later
+  ``eval_df_`` and invalidates the gradient cache; ``eval_df_`` is a no-op when
+  ``df_valid``.
+* :class:`AAOObjective` (``AbstractObjectiveAAO``, :15-59): a single
+  ``eval_fdf_impl`` computes both at once.
+
+The stateful wrapper keeps the reference's evaluation counters (``f_evals``,
+``df_evals``, ``fdf_evals``) and the ``df_valid`` gradient-cache discipline,
+which the TRM relies on (one gradient per outer iteration,
+``multi-trust.jl:102``).
+
+Conventions: the optimization variable ``x`` is a time-major ``(nt, nx)``
+tensor on the objective's ``device``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+__all__ = ["Objective", "LazyObjective", "AAOObjective"]
+
+
+class Objective:
+    """Common base: problem dimensions, admissible set, counters.
+
+    Attributes expected on instances:
+
+    * ``T0``, ``T1``, ``nt``, ``tau`` — time grid.
+    * ``nu`` (continuous controls), ``nv`` (integer controls), ``nx = nu+nv``.
+    * ``V`` — ragged per-control integer level lists (``𝓥``).
+    * ``admissible`` — :class:`~mioc_tpu_torch.ops.levels.AdmissibleSet` or
+      ``None``.
+    * ``x`` — current control, ``(nt, nx)``.
+    * ``device``, ``dtype`` — where and in which precision it is evaluated.
+    """
+
+    T0: float
+    T1: float
+    nt: int
+    nu: int = 0
+    nv: int = 0
+
+    def __init__(self):
+        self.f: float = 0.0
+        self.df: Optional[torch.Tensor] = None
+        self.df_valid: bool = False
+        self.f_evals: int = 0
+        self.df_evals: int = 0
+        self.fdf_evals: int = 0
+        self.x: Optional[torch.Tensor] = None
+
+    # -- helpers matching ODEObjective.jl:76-122 ------------------------------
+    @property
+    def nx(self) -> int:
+        return self.nu + self.nv
+
+    def i2t(self, i):
+        return self.T0 + i * self.tau
+
+    def t2i(self, t):
+        return int(round((t - self.T0) / self.tau))
+
+    def trange0(self):
+        return np.linspace(self.T0, self.T1, self.nt + 1)
+
+    def trange(self):
+        return np.linspace(self.T0 + self.tau, self.T1, self.nt)
+
+    def as_control(self, x) -> torch.Tensor:
+        """``x`` as a tensor of this objective's dtype on its device."""
+        return torch.as_tensor(x, dtype=self.dtype, device=self.device)
+
+
+class LazyObjective(Objective):
+    """f-then-df protocol with gradient-cache invalidation.
+
+    Subclasses implement:
+      ``eval_f_impl(x, cache: bool) -> (fval, aux)`` — objective at ``x``;
+        when ``cache`` the returned ``aux`` (e.g. the state trajectory) is
+        stored for the gradient pass.
+      ``eval_df_impl() -> df`` — gradient at the cached ``x``/``aux``.
+    """
+
+    def eval_f_impl(self, x, cache: bool):
+        raise NotImplementedError
+
+    def eval_df_impl(self):
+        raise NotImplementedError
+
+    def eval_f(self, x) -> float:
+        """Evaluate at ``x``; counts but does not cache (AbstractObjective.jl:74-78)."""
+        self.f_evals += 1
+        fval, _ = self.eval_f_impl(self.as_control(x), cache=False)
+        return float(fval)
+
+    def eval_f_(self) -> float:
+        """Evaluate at ``self.x``; caches state and invalidates ``df`` (:81-91)."""
+        self.f_evals += 1
+        fval, aux = self.eval_f_impl(self.x, cache=True)
+        self._aux = aux
+        self.f = float(fval)
+        self.df_valid = False
+        return self.f
+
+    def eval_df_(self):
+        """Gradient at ``self.x``; assumes ``eval_f_`` ran for this ``x`` (:94-102)."""
+        if not self.df_valid:
+            self.df_evals += 1
+            self.df = self.eval_df_impl()
+            self.df_valid = True
+
+    def eval_fdf_(self) -> float:
+        f = self.eval_f_()
+        self.eval_df_()
+        return f
+
+
+class AAOObjective(Objective):
+    """All-at-once protocol: one hook computes value and gradient (:15-59)."""
+
+    def eval_fdf_impl(self, x, want_df: bool):
+        raise NotImplementedError
+
+    def eval_f(self, x) -> float:
+        self.fdf_evals += 1
+        fval, _ = self.eval_fdf_impl(self.as_control(x), want_df=False)
+        return float(fval)
+
+    def eval_f_(self) -> float:
+        fval, _ = self.eval_fdf_impl(self.x, want_df=False)
+        self.fdf_evals += 1
+        self.f = float(fval)
+        self.df_valid = False
+        return self.f
+
+    def eval_df_(self):
+        if not self.df_valid:
+            self.fdf_evals += 1
+            _, df = self.eval_fdf_impl(self.x, want_df=True)
+            self.df = df
+            self.df_valid = True
+
+    def eval_fdf_(self) -> float:
+        self.fdf_evals += 1
+        fval, df = self.eval_fdf_impl(self.x, want_df=True)
+        self.f = float(fval)
+        self.df = df
+        self.df_valid = True
+        return self.f

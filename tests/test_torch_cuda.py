@@ -1,0 +1,118 @@
+"""The CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: each test asks the ``cuda_device`` fixture, which skips
+without a CUDA device.  This file imports neither JAX nor ``mioc_tpu``, so on
+a machine with a card and no JAX it runs without the repo's conftest::
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+
+The shapes here cover what ``chip_smoke.py`` does not: the int32 U route
+(L > 127), nt = 1, budgets past B, the wrappers' refusals and the solve's
+launch counters at a small size.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from mioc_tpu_torch.ops import bellman as tb  # noqa: E402
+from mioc_tpu_torch.ops.levels import (  # noqa: E402
+    bounded_sum_levels,
+    jump_cost_table,
+    product_levels,
+)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _tables(adm, nt, B, dtype, dev, seed=0, p=1, beta=0.05, tau=0.05):
+    rng = np.random.default_rng(seed)
+    grad = torch.as_tensor(rng.normal(size=(nt, adm.M)), dtype=dtype, device=dev)
+    u_old = torch.as_tensor(adm.levels[rng.integers(0, adm.L, size=nt)],
+                            dtype=dtype, device=dev)
+    jump = torch.as_tensor(jump_cost_table(adm.levels, p, beta=beta), dtype=dtype,
+                           device=dev)
+    stage, btilde = tb.stage_tables(grad, u_old, adm.levels, tau)
+    return stage, btilde, jump, tb.max_budget_use(adm.levels)
+
+
+CASES = [
+    ("sos1", lambda: bounded_sum_levels([[0, 1]] * 3, 1, 1), 1, 6),
+    ("sos1", lambda: bounded_sum_levels([[0, 1]] * 3, 1, 1), 300, 40),
+    ("multi", lambda: product_levels([[-2, -1, 0, 1, 2]]), 257, 3),
+    ("L130", lambda: product_levels([list(range(13)), list(range(10))]), 40, 30),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name,levels,nt,B", CASES)
+def test_kernels_bit_equal_plain(cuda_device, name, levels, nt, B, dtype):
+    from mioc_tpu_torch.ops.backtrack_cuda import chase
+    from mioc_tpu_torch.ops.bellman_cuda import dp_build
+
+    adm = levels()
+    stage, btilde, jump, smax = _tables(adm, nt, B, dtype, cuda_device)
+    U_k, phi_k = dp_build(stage, btilde, jump, B, smax)
+    U_p, phi_p = tb.build_tables_plain(stage, btilde, jump, B, smax)
+    assert U_k.dtype == tb.u_dtype(adm.L) and U_k.shape == (nt - 1, adm.L, B + 1)
+    assert torch.equal(U_k, U_p)
+    assert torch.equal(phi_k, phi_p)
+    for bn in (B + 5, B, B // 2, 1, 0):
+        assert torch.equal(chase(U_k, phi_k, btilde, bn),
+                           tb.backtrack_plain(U_k, phi_k, btilde, bn))
+
+
+def test_wrappers_route_cuda_tensors_to_kernels(cuda_device):
+    from mioc_tpu_torch.ops.backtrack_cuda import chase
+    from mioc_tpu_torch.ops.bellman_cuda import dp_build
+
+    adm = bounded_sum_levels([[0, 1]] * 3, 1, 1)
+    stage, btilde, jump, smax = _tables(adm, 50, 9, torch.float64, cuda_device)
+    n_b, n_c, n_p = dp_build.launches, chase.launches, tb.build_tables_plain.calls
+    U, phi0 = tb.build_tables(stage, btilde, jump, 9, smax)
+    u, idx = tb.backtrack(U, phi0, btilde, adm.levels, 9)
+    assert (dp_build.launches, chase.launches) == (n_b + 1, n_c + 1)
+    assert tb.build_tables_plain.calls == n_p
+    assert u.device.type == "cuda" and u.shape == (50, 3)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    from mioc_tpu_torch.ops.backtrack_cuda import chase
+    from mioc_tpu_torch.ops.bellman_cuda import dp_build
+
+    adm = product_levels([list(range(6))] * 2)
+    stage, btilde, jump, smax = _tables(adm, 20, 12, torch.float64, cuda_device)
+    with pytest.raises(TypeError):
+        dp_build(stage, btilde.long(), jump, 12, smax)
+    with pytest.raises(ValueError, match="contiguous"):
+        dp_build(stage.t().contiguous().t(), btilde, jump, 12, smax)
+    with pytest.raises(ValueError, match="shared memory"):
+        dp_build(stage, btilde, jump, 500, smax)  # 2·36·501·8 B > one block
+    U, phi0 = dp_build(stage, btilde, jump, 12, smax)
+    with pytest.raises(ValueError, match="shapes"):
+        chase(U[:-1].contiguous(), phi0, btilde, 12)
+
+
+def test_small_solve_counts_launches(cuda_device):
+    from mioc_tpu_torch.models import LVMObj
+    from mioc_tpu_torch.ops.backtrack_cuda import chase
+    from mioc_tpu_torch.ops.bellman_cuda import dp_build
+    from mioc_tpu_torch.solvers.trm import TRMParameters, trm_solve
+
+    par = TRMParameters(beta=1e-4, delta0=2.0, p=np.inf)
+    n_b, n_c = dp_build.launches, chase.launches
+    res = trm_solve(LVMObj(nt=128, device=cuda_device), par, seed=0)
+    assert dp_build.launches - n_b == res.dp_builds
+    assert chase.launches - n_c == res.inner_steps
+    ref = trm_solve(LVMObj(nt=128, device="cpu"), par, seed=0)
+    assert (ref.iterations, ref.inner_steps) == (res.iterations, res.inner_steps)
+    np.testing.assert_array_equal(ref.u, res.u)
+    np.testing.assert_allclose(res.J, ref.J, rtol=1e-12)
