@@ -6,21 +6,40 @@
 Run from the root of a checkout.  It builds the CUDA kernels from
 ``mioc_tpu_torch/csrc`` (one ``nvcc`` per source, all at once), then:
 
-1. holds each kernel against its plain PyTorch version on the card at three
-   DP shapes (fishing nt=1024 L=3 B=170; conv nt=2048 L=5 B=128; heat-scale
-   nt=1024 L=36 B=204), in float32 and float64, with inputs from a seeded
-   numpy generator.  The tables U and phi0 must be BIT-equal and the chased
-   level indices equal for B_new ∈ {B, B//2, B//4, 0}.  Times are CUDA-event
-   medians, taken in turns (plain, kernel, kernel, plain);
-2. drives the port's main path as a user would:
-   ``trm_solve(LVMObj(nt=1024), TRMParameters(beta=1e-4, delta0=2.0, p=inf),
-   seed=0)`` on the card at float64, with every launch count set to 0 just
-   before and read just after.  It must converge in 41 iterations and 193
-   inner steps to J = 0.9304798828368771 (rtol 1e-12) — the JAX package's
-   result on the CPU at float64 — with 41 ``dp_build`` and 193 ``chase``
-   launches and no call of the plain DP; and it must equal the same solve
-   run here with ``device="cpu"`` (same iterations, same accepted u, J to
-   rtol 1e-12).
+1. holds the single-start kernels (``dp_build``, ``chase``) against their
+   plain PyTorch versions on the card at three DP shapes (fishing nt=1024
+   L=3 B=170; conv nt=2048 L=5 B=128; heat-scale nt=1024 L=36 B=204), in
+   float32 and float64, with inputs from a seeded numpy generator.  The
+   tables U and phi0 must be BIT-equal and the chased level indices equal
+   for B_new ∈ {B, B//2, B//4, 0}.  Times are CUDA-event medians, taken in
+   turns (plain, kernel, kernel, plain);
+2. holds the batched kernels (``dp_build_batched``, ``chase_batched``,
+   ``chase_trials``) against their plain versions the same way, at fishing
+   (S=32 starts) and heat scale (S=8), float32 and float64: tables bit-equal,
+   per-start caps and Kt=9 trial caps (the fishing halving schedule 170 … 0;
+   B, B/2, … 0 at heat scale) giving equal indices;
+3. drives the port's paths as a user would, each with every launch count set
+   to 0 just before it and read just after, on the card at float64 with the
+   fishing preset ``LVMObj(nt=1024)``, ``TRMParameters(beta=1e-4,
+   delta0=2.0, p=inf)``:
+   a. the host loop ``trm_solve(..., seed=0)``: 41 iterations, 193 inner
+      steps, J = 0.9304798828368771 (rtol 1e-12) — the JAX package's result
+      on the CPU at float64 — through 41 ``dp_build`` and 193 ``chase``
+      launches, equal to the same solve run here with ``device="cpu"``;
+   b. the device-resident ``trm_solve_device(..., seed=0)`` (speculative
+      trial waves, the ``"vmap"`` wave chase): the same iterations, inner
+      steps, J and accepted u as (a), one ∇f fewer, through 41 ``dp_build``
+      and 41 ``chase_batched`` launches;
+   c. ``multistart_solve_device`` over 32 starts ``rand_func(obj, seed=s)``,
+      sequential inner loop: every start converged, admissible, equal to the
+      JAX package's result (iterations and inner steps equal, J to rtol
+      1e-12; constants below), start 0 equal to (b); through
+      ``dp_build_batched`` and ``chase_batched``;
+   d. the same with ``speculative=True``: every field equal to (c), through
+      ``dp_build_batched`` and ``chase_trials``.
+   No path may call a plain DP version on the card;
+4. times the batched sweeps (ms per batched f and ∇f at the batch sizes the
+   paths use).
 
 Each finding is printed as one JSON object per line; the ``kernels`` line
 comes next to last and the last line is
@@ -53,6 +72,35 @@ PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
 REF_J = 0.9304798828368771
 REF_ITERATIONS = 41
 REF_INNER = 193
+
+# The JAX package's batched multistart of the fishing preset (nt=1024) from
+# the 32 starts rand_func(obj, seed=s), s = 0 … 31, on the CPU at float64:
+#   JAX_PLATFORMS=cpu python -c "import jax, numpy as np
+#   jax.config.update('jax_enable_x64', True)
+#   from mioc_tpu.models import LVMObj; from mioc_tpu.solvers.trm import TRMParameters
+#   from mioc_tpu.solvers.trm_device import multistart_solve_device
+#   from mioc_tpu.utils.init import rand_func
+#   obj = LVMObj(nt=1024); x0s = np.stack([rand_func(obj, seed=s) for s in range(32)])
+#   r = multistart_solve_device(obj, TRMParameters(beta=1e-4, delta0=2.0, p=np.inf), x0s)
+#   print(r.iterations.tolist(), r.inner_steps.tolist(), [float(j) for j in r.J])"
+REF32_ITERATIONS = (41, 45, 38, 39, 34, 35, 30, 47, 55, 32, 23, 42, 20, 28, 40, 45,
+                    19, 56, 53, 45, 35, 54, 37, 33, 48, 48, 18, 47, 28, 31, 35, 46)
+REF32_INNER = (193, 217, 168, 182, 165, 175, 136, 229, 279, 143, 88, 200, 72, 122,
+               188, 223, 79, 292, 261, 204, 168, 267, 176, 153, 250, 246, 68, 227,
+               115, 134, 154, 217)
+REF32_J = (0.9304798828368771, 0.9356193732626554, 0.933153304738131,
+           0.9336901847730771, 0.9311594529513193, 0.9426448204140109,
+           0.9385177634801724, 0.9391829964916898, 0.9313760170590545,
+           0.9388375858648962, 0.933378701396758, 0.932653579348153,
+           0.9315401910458031, 0.9367911591137649, 0.9309332108899605,
+           0.9325019181898286, 0.9402396991763876, 0.9321600570188987,
+           0.93532160734833, 0.9332695294235023, 0.9362075716150043,
+           0.939046116292238, 0.9411525526690405, 0.9387554655451024,
+           0.9367389928210853, 0.9367725490420378, 0.9338187669683115,
+           0.9360519109334589, 0.9307827378230108, 0.9351341998846148,
+           0.9368280889757825, 0.9342508091655368)
+N_STARTS = 32
+PRESET = dict(beta=1e-4, delta0=2.0, p=math.inf)
 
 SHAPES = (
     # name, nt, B, level set, (p, beta, tau) — the bundled problems' presets
@@ -192,32 +240,168 @@ def kernel_phase(torch, name, nt, B, level_spec, preset, dtype, seed):
     return out
 
 
-def main_path(torch):
+def schedule(delta0: float, dt: float, kmax: int = 40) -> list:
+    """The device TRM's static halving caps ⌊δ/Δt⌋, δ = δ₀, δ₀/2, … down to
+    0, floored in float64 (the solves' dtype)."""
+    caps, d = [], np.float64(delta0)
+    for _ in range(kmax):
+        caps.append(int(np.floor(d / np.float64(dt))))
+        if caps[-1] == 0:
+            return caps
+        d = d / np.float64(2.0)
+    return caps
+
+
+BATCHED = (
+    # name, S, index into SHAPES, trial caps
+    ("fishing", 32, 0, schedule(2.0, 12.0 / 1024)),
+    ("heat", 8, 2, [204 >> k for k in range(8)] + [0]),
+)
+
+
+def batched_phase(torch, name, S, shape, trial_caps, dtype, seed):
+    from mioc_tpu_torch.ops import bellman as tb
+    from mioc_tpu_torch.ops import levels as lv
+    from mioc_tpu_torch.ops.backtrack_cuda import chase_batched, chase_trials
+    from mioc_tpu_torch.ops.bellman_cuda import dp_build_batched
+
+    _, nt, B, (kind, V), (p, beta, tau) = shape
+    adm = lv.bounded_sum_levels(V, 1, 1) if kind == "bounded" else lv.product_levels(V)
+    L = adm.L
+    rng = np.random.default_rng(seed)
+    dev = torch.device(DEVICE)
+    grad = torch.as_tensor(rng.normal(size=(S, nt, adm.M)), dtype=dtype, device=dev)
+    u_old = torch.as_tensor(adm.levels[rng.integers(0, L, size=(S, nt))], dtype=dtype,
+                            device=dev)
+    jump = torch.as_tensor(lv.jump_cost_table(adm.levels, p, beta=beta), dtype=dtype,
+                           device=dev)
+    smax = tb.max_budget_use(adm.levels)
+    stage, btilde = tb.stage_tables(grad, u_old, adm.levels, tau)
+    Kt = len(trial_caps)
+    caps = torch.tensor([trial_caps[s % Kt] for s in range(S)], dtype=torch.int32,
+                        device=dev)
+    trials = torch.tensor([trial_caps] * S, dtype=torch.int32, device=dev)
+
+    U_k, phi_k = dp_build_batched(stage, btilde, jump, B, smax)
+    U_p, phi_p = tb.build_tables_batched_plain(stage, btilde, jump, B, smax)
+    torch.cuda.synchronize()
+    require(U_k.shape == U_p.shape and U_k.dtype == U_p.dtype, f"{name} batched U layout")
+    require(torch.equal(U_k, U_p), f"{name} S={S} {dtype}: batched U bit-equal")
+    require(torch.equal(bits(phi_k, torch), bits(phi_p, torch)),
+            f"{name} S={S} {dtype}: batched phi0 bit-equal")
+    finite = torch.isfinite(phi_k)
+    phi_err = float((phi_k[finite] - phi_p[finite]).abs().max()) if finite.any() else 0.0
+    i_k = chase_batched(U_k, phi_k, btilde, caps)
+    i_p = tb.backtrack_batched_plain(U_k, phi_k, btilde, caps.cpu())
+    idx_err = int((i_k.long() - i_p.long()).abs().max())
+    require(idx_err == 0, f"{name} {dtype}: batched chase equal at caps {caps.tolist()}")
+    t_k = chase_trials(U_k, phi_k, btilde, trials)
+    t_p = tb.backtrack_trials_plain(U_k, phi_k, btilde, trials.cpu())
+    trial_err = int((t_k.long() - t_p.long()).abs().max())
+    require(trial_err == 0, f"{name} {dtype}: trial chase equal at caps {trial_caps}")
+
+    dt_name = "float64" if dtype == torch.float64 else "float32"
+    ds, us = phi_k.element_size(), U_k.element_size()
+    # Work this run's data needs, as for the single kernels, over S starts.
+    s_ = btilde[:, :-1].long()
+    valid = int(torch.where(s_ <= min(smax, B), (B + 1 - s_).clamp(min=0), 0).sum())
+    total = S * (nt - 1) * L * (B + 1)
+    build_ops = valid * 2 * L + (total - valid)
+    build_bytes = (S * (nt * L * (ds + 4) + (nt - 1) * L * (B + 1) * us
+                        + L * (B + 1) * ds) + L * L * ds)
+    one_chase = L * (B + 1) * ds + (nt - 1) * (us + 4) + nt * 4 + 4
+    chase_bytes = S * one_chase
+    chase_ops = S * (L * (B + 1) + (nt - 1))
+    # Trial wave: phi0 once per start, Kt × (nt-1) entries of U and b̃, Kt
+    # index rows and caps.
+    trial_bytes = S * (L * (B + 1) * ds + Kt * ((nt - 1) * (us + 4) + nt * 4 + 4))
+    trial_ops = S * Kt * (L * (B + 1) + (nt - 1))
+
+    b_ms, b_plain = in_turns(
+        torch, lambda: tb.build_tables_batched_plain(stage, btilde, jump, B, smax),
+        lambda: dp_build_batched(stage, btilde, jump, B, smax), 2, 5)
+    c_ms, c_plain = in_turns(
+        torch, lambda: tb.backtrack_batched_plain(U_k, phi_k, btilde, caps.cpu()),
+        lambda: chase_batched(U_k, phi_k, btilde, caps), 3, 10)
+    t_ms, t_plain = in_turns(
+        torch, lambda: tb.backtrack_trials_plain(U_k, phi_k, btilde, trials.cpu()),
+        lambda: chase_trials(U_k, phi_k, btilde, trials), 3, 10)
+    out = {"phase": "batched_kernels", "shape": name, "dtype": dt_name, "S": S,
+           "nt": nt, "L": L, "B": B, "u_dtype": str(U_k.dtype).replace("torch.", ""),
+           "caps": caps.tolist(), "trial_caps": trial_caps}
+    for key, ms, plain, nbytes, ops, err in (
+            ("dp_build_batched", b_ms, b_plain, build_bytes, build_ops, phi_err),
+            ("chase_batched", c_ms, c_plain, chase_bytes, chase_ops, idx_err),
+            ("chase_trials", t_ms, t_plain, trial_bytes, trial_ops, trial_err)):
+        bd_ms, bd_by = bound(nbytes, ops, dt_name)
+        out[key] = {"bit_equal": True, "max_abs_err": err, "kernel_ms": ms,
+                    "plain_ms": plain, "bound_ms": bd_ms, "bound_by": bd_by,
+                    "ops": ops, "bytes": nbytes}
+    emit(out)
+    return out
+
+
+def zero_counts(torch):
+    """Set every kernel's launch count and every plain version's call count
+    to 0; returns a reader of both."""
+    from mioc_tpu_torch.ops import bellman as tb
+    from mioc_tpu_torch.ops.backtrack_cuda import chase, chase_batched, chase_trials
+    from mioc_tpu_torch.ops.bellman_cuda import dp_build, dp_build_batched
+
+    kernels = {"dp_build": dp_build, "chase": chase, "dp_build_batched": dp_build_batched,
+               "chase_batched": chase_batched, "chase_trials": chase_trials}
+    plains = {n: getattr(tb, n) for n in (
+        "build_tables_plain", "backtrack_plain", "build_tables_batched_plain",
+        "backtrack_batched_plain", "backtrack_trials_plain")}
+    for f in kernels.values():
+        f.launches = 0
+    for f in plains.values():
+        f.calls = 0
+
+    def read():
+        torch.cuda.synchronize()
+        return ({n: f.launches for n, f in kernels.items()},
+                {n: f.calls for n, f in plains.items()})
+
+    return read
+
+
+def count_sweeps(obj) -> dict:
+    """Count the objective's batched sweeps by batch size, ``{"f": {rows:
+    batches}, "df": {rows: batches}}`` (instrumentation only: the wrapped
+    methods run unchanged)."""
+    counts = {"f": {}, "df": {}}
+    fwd, adj = obj._forward_batch, obj._adjoint_batch
+
+    def forward(xs):
+        counts["f"][xs.shape[0]] = counts["f"].get(xs.shape[0], 0) + 1
+        return fwd(xs)
+
+    def adjoint(xs, ys):
+        counts["df"][xs.shape[0]] = counts["df"].get(xs.shape[0], 0) + 1
+        return adj(xs, ys)
+
+    obj._forward_batch, obj._adjoint_batch = forward, adjoint
+    return counts
+
+
+def host_path(torch):
     from mioc_tpu_torch.models import LVMObj
-    from mioc_tpu_torch.ops import bellman
-    from mioc_tpu_torch.ops.backtrack_cuda import chase
-    from mioc_tpu_torch.ops.bellman_cuda import dp_build
     from mioc_tpu_torch.solvers.trm import TRMParameters, trm_solve
 
-    par = TRMParameters(beta=1e-4, delta0=2.0, p=math.inf)
-
-    dp_build.launches = 0
-    chase.launches = 0
-    bellman.build_tables_plain.calls = 0
-    bellman.backtrack_plain.calls = 0
+    par = TRMParameters(**PRESET)
+    read = zero_counts(torch)
     t0 = time.perf_counter()
     res = trm_solve(LVMObj(nt=1024), par, seed=0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"dp_build": dp_build.launches, "chase": chase.launches}
-    plain_calls = {"build_tables_plain": bellman.build_tables_plain.calls,
-                   "backtrack_plain": bellman.backtrack_plain.calls}
+    launches, plain_calls = read()
 
     t0 = time.perf_counter()
     ref = trm_solve(LVMObj(nt=1024, device="cpu"), par, seed=0)
     cpu_wall = time.perf_counter() - t0
 
-    emit({"phase": "main_path", "problem": "fishing", "nt": 1024, "dtype": "float64",
+    emit({"phase": "host_path", "problem": "fishing", "nt": 1024, "dtype": "float64",
           "J": res.J, "converged": res.converged, "iterations": res.iterations,
           "inner_steps": res.inner_steps, "dp_builds": res.dp_builds,
           "f_evals": res.f_evals, "df_evals": res.df_evals,
@@ -229,7 +413,7 @@ def main_path(torch):
                         "inner_steps": ref.inner_steps, "wall_s": cpu_wall,
                         "timings_s": ref.timings}})
 
-    require(res.converged, "main path converged")
+    require(res.converged, "host path converged")
     require(res.u.shape == (1024, 3) and np.isfinite(res.u).all(), "u shape, finite")
     require(bool((res.u.sum(axis=1) == 1).all()), "u rows admissible (SOS1)")
     require(res.iterations == REF_ITERATIONS, f"iterations {res.iterations} == 41")
@@ -239,16 +423,128 @@ def main_path(torch):
             f"dp_build launches {launches['dp_build']} == dp_builds")
     require(launches["chase"] == res.inner_steps,
             f"chase launches {launches['chase']} == inner steps")
-    require(plain_calls == {"build_tables_plain": 0, "backtrack_plain": 0},
-            f"no plain DP on the card: {plain_calls}")
+    require(not any(plain_calls.values()), f"no plain DP on the card: {plain_calls}")
     require(ref.iterations == res.iterations and ref.inner_steps == res.inner_steps,
             "card solve == CPU solve: iterations")
     require(np.array_equal(ref.u, res.u), "card solve == CPU solve: accepted u")
     require(abs(ref.J - res.J) <= 1e-12 * abs(ref.J), "card solve == CPU solve: J")
-    return launches
+    return res, launches
+
+
+def device_single_path(torch, host):
+    from mioc_tpu_torch.models import LVMObj
+    from mioc_tpu_torch.solvers.trm import TRMParameters
+    from mioc_tpu_torch.solvers.trm_device import trm_solve_device
+
+    obj = LVMObj(nt=1024)
+    sweeps = count_sweeps(obj)
+    read = zero_counts(torch)
+    t0 = time.perf_counter()
+    res = trm_solve_device(obj, TRMParameters(**PRESET), seed=0)
+    wall = time.perf_counter() - t0
+    launches, plain_calls = read()
+    emit({"phase": "device_single", "problem": "fishing", "nt": 1024,
+          "dtype": "float64", "speculative": True, "wave_chase": "vmap",
+          "J": float(res.J), "converged": bool(res.converged),
+          "iterations": int(res.iterations), "inner_steps": int(res.inner_steps),
+          "f_evals": int(res.f_evals), "df_evals": int(res.df_evals),
+          "dp_builds": int(res.dp_builds), "launches": launches,
+          "plain_calls_on_card": plain_calls, "sweeps": sweeps, "wall_s": wall})
+    require(bool(res.converged), "device solve converged")
+    require(int(res.iterations) == REF_ITERATIONS, "device solve: 41 iterations")
+    require(int(res.inner_steps) == REF_INNER, "device solve: 193 inner steps")
+    require(abs(float(res.J) - REF_J) <= 1e-12 * abs(REF_J), f"device J {float(res.J)!r}")
+    require(int(res.df_evals) == host.df_evals - 1, "device df_evals == host's − 1")
+    require(np.array_equal(res.u, host.u), "device solve == host solve: accepted u")
+    require(launches["dp_build"] == launches["chase_batched"] == REF_ITERATIONS,
+            f"device solve: 41 dp_build and 41 chase_batched launches: {launches}")
+    require(launches["chase"] == 0, "device solve's wave chases with chase_batched")
+    require(not any(plain_calls.values()), f"no plain DP on the card: {plain_calls}")
+    return res, launches, wall, sweeps
+
+
+def multistart_path(torch, x0s, speculative: bool):
+    from mioc_tpu_torch.models import LVMObj
+    from mioc_tpu_torch.solvers.trm import TRMParameters
+    from mioc_tpu_torch.solvers.trm_device import multistart_solve_device
+
+    obj = LVMObj(nt=1024)
+    sweeps = count_sweeps(obj)
+    read = zero_counts(torch)
+    t0 = time.perf_counter()
+    res = multistart_solve_device(obj, TRMParameters(**PRESET), x0s,
+                                  speculative=speculative)
+    wall = time.perf_counter() - t0
+    launches, plain_calls = read()
+    name = "multistart_speculative" if speculative else "multistart_sequential"
+    emit({"phase": name, "problem": "fishing", "nt": 1024, "dtype": "float64",
+          "S": len(x0s), "J": res.J.tolist(), "converged": res.converged.tolist(),
+          "iterations": res.iterations.tolist(), "inner_steps": res.inner_steps.tolist(),
+          "max_iterations": int(res.iterations.max()), "launches": launches,
+          "plain_calls_on_card": plain_calls, "sweeps": sweeps, "wall_s": wall,
+          "ms_per_start": 1e3 * wall / len(x0s)})
+    require(bool(res.converged.all()), f"{name}: every start converged")
+    require(bool((res.u.sum(axis=2) == 1).all()), f"{name}: rows admissible (SOS1)")
+    require(not any(plain_calls.values()), f"{name}: no plain DP on the card")
+    its = int(res.iterations.max())
+    require(launches["dp_build_batched"] == its, f"{name}: one batched build per outer")
+    wave = "chase_trials" if speculative else "chase_batched"
+    require(launches[wave] >= its and launches["dp_build"] == launches["chase"] == 0,
+            f"{name}: chases through {wave}: {launches}")
+    if speculative:
+        require(launches["chase_batched"] == 0, f"{name}: no batched chase")
+    return res, launches, wall, sweeps
+
+
+def sweep_times(torch, x0s) -> dict:
+    """ms per batched f and ∇f at the batch sizes the paths use (S = 1, 9,
+    32, 288 rows), CUDA-event medians of 5 calls each, the sizes in turns
+    (ascending, then descending)."""
+    from mioc_tpu_torch.models import LVMObj
+
+    obj = LVMObj(nt=1024)
+    xs = torch.as_tensor(x0s, dtype=obj.dtype, device=obj.device)
+    times = {"f": {}, "df": {}}
+    sizes = (1, 9, 32, 288)
+    for S in sizes + sizes[::-1]:
+        rows = xs[torch.arange(S, device=xs.device) % len(xs)]
+        _, ys = obj._forward_batch(rows)
+        times["f"].setdefault(S, []).extend(
+            median_ms(torch, lambda: obj._forward_batch(rows), 5))
+        times["df"].setdefault(S, []).extend(
+            median_ms(torch, lambda: obj._adjoint_batch(rows, ys), 5))
+    out = {kind: {S: statistics.median(v) for S, v in t.items()}
+           for kind, t in times.items()}
+    emit({"phase": "sweeps", "nt": 1024, "dtype": "float64",
+          "f_ms": out["f"], "df_ms": out["df"]})
+    return out
+
+
+def check_multistarts(seq, spec, single):
+    for s in range(N_STARTS):
+        require(int(seq.iterations[s]) == REF32_ITERATIONS[s]
+                and int(seq.inner_steps[s]) == REF32_INNER[s],
+                f"multistart start {s}: iterations/inner steps == JAX "
+                f"({int(seq.iterations[s])}/{int(seq.inner_steps[s])})")
+        require(abs(float(seq.J[s]) - REF32_J[s]) <= 1e-12 * abs(REF32_J[s]),
+                f"multistart start {s}: J {float(seq.J[s])!r} == {REF32_J[s]!r}")
+    require(np.array_equal(seq.u[0], single.u) and int(seq.iterations[0]) == int(
+        single.iterations) and int(seq.inner_steps[0]) == int(single.inner_steps),
+            "multistart start 0 == single device solve")
+    require(abs(float(seq.J[0]) - float(single.J)) <= 1e-12 * abs(float(single.J)),
+            "multistart start 0 == single device solve: J")
+    for field in ("u", "x_final", "converged", "iterations", "inner_steps", "f_evals",
+                  "df_evals", "dp_builds"):
+        require(np.array_equal(getattr(spec, field), getattr(seq, field)),
+                f"speculative multistart == sequential: {field}")
+    for field in ("J", "f", "tv"):
+        a, b = getattr(spec, field), getattr(seq, field)
+        require(bool(np.all(np.abs(a - b) <= 1e-12 * np.abs(b))),
+                f"speculative multistart == sequential: {field}")
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(ROOT, "mioc_tpu_torch")):
         print("chip_smoke.py: the mioc_tpu_torch package is not beside this file",
               file=sys.stderr)
@@ -269,6 +565,7 @@ def main() -> int:
     print(smi, flush=True)
 
     from mioc_tpu_torch.ops import _kernels
+    from mioc_tpu_torch.utils.init import rand_func
 
     build_s = _kernels.build_all()
     ptxas = {n: [ln.strip() for ln in _kernels.build_log(n).splitlines()
@@ -280,19 +577,61 @@ def main() -> int:
         for dtype in (torch.float32, torch.float64):
             phases[(name, dtype)] = kernel_phase(torch, name, nt, B, spec, preset,
                                                  dtype, seed)
+    for seed, (name, S, shape_i, caps) in enumerate(BATCHED):
+        for dtype in (torch.float32, torch.float64):
+            phases[("batched", name, dtype)] = batched_phase(
+                torch, name, S, SHAPES[shape_i], caps, dtype, 10 + seed)
 
-    launches = main_path(torch)
+    host, host_launches = host_path(torch)
+    single, single_launches, single_wall, single_sweeps = device_single_path(torch, host)
+    from mioc_tpu_torch.models import LVMObj
 
-    main_shape = phases[("fishing", torch.float64)]
+    x0s = np.stack([rand_func(LVMObj(nt=1024), seed=s) for s in range(N_STARTS)])
+    seq, seq_launches, seq_wall, seq_sweeps = multistart_path(torch, x0s, False)
+    spec, spec_launches, spec_wall, spec_sweeps = multistart_path(torch, x0s, True)
+    check_multistarts(seq, spec, single)
+    sweeps = sweep_times(torch, x0s)
+
+    # Where the time of each path goes: the sweeps (batches × measured ms per
+    # batch), the kernels (launches × measured kernel ms), and the rest
+    # (stage tables, selects, the flag reads that end each loop, Python).
+    fishing64 = phases[("fishing", torch.float64)]
+    batched64 = phases[("batched", "fishing", torch.float64)]
+    kernel_ms = {"dp_build": fishing64["dp_build"]["kernel_ms"],
+                 "chase": fishing64["chase"]["kernel_ms"],
+                 **{k: batched64[k]["kernel_ms"] for k in (
+                     "dp_build_batched", "chase_batched", "chase_trials")}}
+    paths = {"device_single": (single_wall, single_launches, single_sweeps),
+             "multistart_sequential": (seq_wall, seq_launches, seq_sweeps),
+             "multistart_speculative": (spec_wall, spec_launches, spec_sweeps)}
+    for name, (wall, launches, counts) in paths.items():
+        k_s = sum(n * kernel_ms[k] for k, n in launches.items()) / 1e3
+        sweep_s = sum(n * sweeps[kind][S] for kind in ("f", "df")
+                      for S, n in counts[kind].items()) / 1e3
+        emit({"phase": "where_the_time_goes", "path": name, "wall_s": wall,
+              "sweeps_s_estimate": sweep_s, "kernels_s_estimate": k_s,
+              "rest_s": wall - sweep_s - k_s, "sweep_counts": counts})
+
     rows = []
-    for key, src, tpu in (("dp_build", "dp_build.cu", "mioc_tpu/ops/bellman_pallas.py:123"),
-                          ("chase", "chase.cu", "mioc_tpu/ops/backtrack_pallas.py:49")):
-        m = main_shape[key]
+    for key, src, tpu, launches, path, m in (
+            ("dp_build", "dp_build.cu", "mioc_tpu/ops/bellman_pallas.py:123",
+             host_launches, "host_path", fishing64["dp_build"]),
+            ("chase", "chase.cu", "mioc_tpu/ops/backtrack_pallas.py:49",
+             host_launches, "host_path", fishing64["chase"]),
+            ("dp_build_batched", "dp_build_batched.cu",
+             "mioc_tpu/ops/bellman_pallas.py:275", seq_launches,
+             "multistart_sequential", batched64["dp_build_batched"]),
+            ("chase_batched", "chase_batched.cu", "mioc_tpu/ops/backtrack_pallas.py:283",
+             seq_launches, "multistart_sequential", batched64["chase_batched"]),
+            ("chase_trials", "chase_trials.cu", "mioc_tpu/ops/backtrack_pallas.py:415",
+             spec_launches, "multistart_speculative", batched64["chase_trials"])):
+        require(launches[key] > 0, f"{key} launched on its path {path}")
         rows.append({"name": key, "route": "cuda", "source": f"mioc_tpu_torch/csrc/{src}",
-                     "replaces": tpu, "launches": launches[key],
+                     "replaces": tpu, "launches": launches[key], "path": path,
                      "max_abs_err": m["max_abs_err"], "ms": m["kernel_ms"],
                      "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                      "bound_by": m["bound_by"], "library_ms": None})
+    emit({"phase": "run", "seconds": time.perf_counter() - t_start})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})
     return 0

@@ -11,8 +11,10 @@
 //          (the lookup BEFORE the decrement: U is the post-shift table);
 //   level_idx[0] = seed l, level_idx[k+1] = l after step k.
 //
-// B_new is a kernel argument, so a halved trust region re-launches on the
-// same tables with no rebuild.
+// B_new is a kernel argument, or read from device memory when the caller
+// passes a pointer to it (the device TRM's halved budget, so that no chase
+// needs a host read), so a halved trust region re-launches on the same
+// tables with no rebuild.
 //
 // What bounds it on this card: the chase is a chain of nt-1 dependent loads
 // (the address of step k+1's U entry is the value of step k's), so it is
@@ -21,94 +23,43 @@
 // there is parallel work — the seed's argmin over the (L, B+1) plane, a
 // block-wide (value, index) reduction that keeps the first-index rule — and
 // walks the chain with one thread, reading the int8 or int32 U and widening
-// it.  On a valid table the walk never leaves 0 ≤ b ≤ B; the read index is
-// clamped into range all the same so a malformed table cannot read out of
-// bounds.
-//
-// NaN: the comparisons ignore NaN where torch.argmin propagates it; the
-// solver never chases a table built from a non-finite gradient.
+// it (common.cuh).
 //
 // Interface: plain C, pointers as void*, launched on the caller's stream;
 // returns cudaGetLastError() after the launch (0 = launched).
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <limits.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-
-template <typename T> __device__ __forceinline__ T inf_of();
-template <> __device__ __forceinline__ float inf_of<float>() { return CUDART_INF_F; }
-template <> __device__ __forceinline__ double inf_of<double>() { return CUDART_INF; }
-
-template <typename T>
-__device__ __forceinline__ bool better(T v, int i, T best, int bi) {
-  return v < best || (v == best && i < bi);
-}
 
 template <typename T, typename UT>
 __global__ void __launch_bounds__(kThreads)
 chase_kernel(const T* __restrict__ phi0,           // (L, B+1)
              const int32_t* __restrict__ btilde,   // (nt, L)
              const UT* __restrict__ U,             // (nt-1, L, B+1)
+             const int32_t* __restrict__ B_dev,    // () or nullptr
              int32_t* __restrict__ out,            // (nt,)
              int nt, int L, int B, int B_new) {
   __shared__ T sval[kThreads];
   __shared__ int sidx[kThreads];
   const int B1 = B + 1;
-  const int P = L * B1;
-  const T INF = inf_of<T>();
-
-  // Seed: masked argmin with the first-index rule.  Masked entries are +inf
-  // but stay candidates, so an all-inf plane gives index 0 as argmin does.
-  T best = INF;
-  int bi = INT_MAX;
-  for (int idx = threadIdx.x; idx < P; idx += blockDim.x) {
-    const int b = idx % B1;
-    const T v = (b <= B_new) ? phi0[idx] : INF;
-    if (better(v, idx, best, bi)) {
-      best = v;
-      bi = idx;
-    }
-  }
-  sval[threadIdx.x] = best;
-  sidx[threadIdx.x] = bi;
-  __syncthreads();
-  for (int half = blockDim.x / 2; half > 0; half >>= 1) {
-    if (threadIdx.x < half) {
-      const T v = sval[threadIdx.x + half];
-      const int i = sidx[threadIdx.x + half];
-      if (better(v, i, sval[threadIdx.x], sidx[threadIdx.x])) {
-        sval[threadIdx.x] = v;
-        sidx[threadIdx.x] = i;
-      }
-    }
-    __syncthreads();
-  }
-
+  const int cap = B_dev != nullptr ? *B_dev : B_new;
+  const int flat = mioc::block_masked_argmin(phi0, L * B1, B1, cap, sval, sidx);
   if (threadIdx.x == 0) {
-    int l = sidx[0] / B1;
-    int b = sidx[0] - l * B1;
-    out[0] = l;
-    for (int k = 0; k < nt - 1; ++k) {
-      const int bc = min(max(b, 0), B);
-      const int nl = static_cast<int>(U[((size_t)k * L + l) * B1 + bc]);
-      b -= btilde[(size_t)k * L + l];  // decrement AFTER the lookup
-      l = nl;
-      out[k + 1] = l;
-    }
+    const int l = flat / B1;
+    mioc::walk(U, btilde, out, nt, L, B, l, flat - l * B1);
   }
 }
 
 template <typename T, typename UT>
-int launch(const void* phi0, const void* btilde, const void* U, void* out,
-           int nt, int L, int B, int B_new, cudaStream_t stream) {
+int launch(const void* phi0, const void* btilde, const void* U, const void* B_dev,
+           void* out, int nt, int L, int B, int B_new, cudaStream_t stream) {
   chase_kernel<T, UT><<<1, kThreads, 0, stream>>>(
       static_cast<const T*>(phi0), static_cast<const int32_t*>(btilde),
-      static_cast<const UT*>(U), static_cast<int32_t*>(out), nt, L, B, B_new);
+      static_cast<const UT*>(U), static_cast<const int32_t*>(B_dev),
+      static_cast<int32_t*>(out), nt, L, B, B_new);
   return (int)cudaGetLastError();
 }
 
@@ -117,20 +68,20 @@ int launch(const void* phi0, const void* btilde, const void* U, void* out,
 extern "C" {
 
 // dtype_bytes: 4 (float) or 8 (double) for phi0; u_bytes: 1 (int8) or 4
-// (int32).  Returns a cudaError_t value (0 = success); -1 for an unsupported
-// type pair.
-int mioc_chase(const void* phi0, const void* btilde, const void* U, void* out,
-               int nt, int L, int B, int B_new, int dtype_bytes, int u_bytes,
-               void* stream) {
+// (int32).  B_dev: a device int32 holding the cap, or null to use B_new.
+// Returns a cudaError_t value (0 = success); -1 for an unsupported type pair.
+int mioc_chase(const void* phi0, const void* btilde, const void* U, const void* B_dev,
+               void* out, int nt, int L, int B, int B_new, int dtype_bytes,
+               int u_bytes, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype_bytes == 8 && u_bytes == 1)
-    return launch<double, int8_t>(phi0, btilde, U, out, nt, L, B, B_new, s);
+    return launch<double, int8_t>(phi0, btilde, U, B_dev, out, nt, L, B, B_new, s);
   if (dtype_bytes == 8 && u_bytes == 4)
-    return launch<double, int32_t>(phi0, btilde, U, out, nt, L, B, B_new, s);
+    return launch<double, int32_t>(phi0, btilde, U, B_dev, out, nt, L, B, B_new, s);
   if (dtype_bytes == 4 && u_bytes == 1)
-    return launch<float, int8_t>(phi0, btilde, U, out, nt, L, B, B_new, s);
+    return launch<float, int8_t>(phi0, btilde, U, B_dev, out, nt, L, B, B_new, s);
   if (dtype_bytes == 4 && u_bytes == 4)
-    return launch<float, int32_t>(phi0, btilde, U, out, nt, L, B, B_new, s);
+    return launch<float, int32_t>(phi0, btilde, U, B_dev, out, nt, L, B, B_new, s);
   return -1;
 }
 

@@ -2,16 +2,9 @@
 //
 // Replaces: mioc_tpu/ops/bellman_pallas.py::_dp_kernel (the fused TPU build
 // behind build_tables_pallas).  Computes exactly what
-// mioc_tpu_torch.ops.bellman.build_tables_plain computes:
-//
-//   Φ_{nt-1}[l, b] = stage[nt-1, l] if b == b̃[nt-1, l] else +inf
-//   for i = nt-2 … 0, for every (l, b):
-//     s = b̃[i, l]
-//     if s > smax or b < s:  val = +inf, arg = 0
-//     else:                  val, arg = min_j Φ_{i+1}[j, b-s] + jump[l, j]
-//                            (strict < over ascending j: the FIRST minimal j)
-//     Φ_i[l, b] = stage[i, l] + val;   U[i, l, b] = arg
-//   phi0 = Φ_0
+// mioc_tpu_torch.ops.bellman.build_tables_plain computes; the recurrence and
+// its kernel body are in dp_build.cuh, shared with dp_build_batched.cu (this
+// entry point launches it on one block).
 //
 // The TPU kernel rolls the contraction's output through smax+1 static lane
 // rotations to apply the budget shift; here each output reads its shifted
@@ -29,100 +22,10 @@
 // streams the post-shift argmin plane U_i straight to device memory, unpadded
 // (nt-1, L, B+1), int8 when L ≤ 127 as on the TPU.
 //
-// NaN: the strict < ignores NaN where torch.min propagates it.  The solver
-// never builds from a non-finite gradient (non-finite trials are rejected
-// before they become u_old), and the tests feed finite inputs.
-//
 // Interface: plain C, pointers as void*, launched on the caller's stream;
 // returns cudaGetLastError() after the launch (0 = launched).
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
-
-namespace {
-
-template <typename T> __device__ __forceinline__ T inf_of();
-template <> __device__ __forceinline__ float inf_of<float>() { return CUDART_INF_F; }
-template <> __device__ __forceinline__ double inf_of<double>() { return CUDART_INF; }
-
-template <typename T, typename UT>
-__global__ void dp_build_kernel(const T* __restrict__ stage,      // (nt, L)
-                                const int32_t* __restrict__ btilde,  // (nt, L)
-                                const T* __restrict__ jump,       // (L, L)
-                                UT* __restrict__ U,               // (nt-1, L, B+1)
-                                T* __restrict__ phi0,             // (L, B+1)
-                                int nt, int L, int B, int smax) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int B1 = B + 1;
-  const int P = L * B1;
-  T* cur = reinterpret_cast<T*>(smem_raw);
-  T* nxt = cur + P;
-  T* jmp = nxt + P;
-  const T INF = inf_of<T>();
-
-  for (int idx = threadIdx.x; idx < L * L; idx += blockDim.x) jmp[idx] = jump[idx];
-  // Terminal layer: exact-budget seed.
-  const T* st_last = stage + (size_t)(nt - 1) * L;
-  const int32_t* bt_last = btilde + (size_t)(nt - 1) * L;
-  for (int idx = threadIdx.x; idx < P; idx += blockDim.x) {
-    const int l = idx / B1;
-    const int b = idx - l * B1;
-    cur[idx] = (b == bt_last[l]) ? st_last[l] : INF;
-  }
-  __syncthreads();
-
-  for (int i = nt - 2; i >= 0; --i) {
-    const T* st = stage + (size_t)i * L;
-    const int32_t* bt = btilde + (size_t)i * L;
-    UT* Ui = U + (size_t)i * P;
-    for (int idx = threadIdx.x; idx < P; idx += blockDim.x) {
-      const int l = idx / B1;
-      const int b = idx - l * B1;
-      const int s = bt[l];
-      T val = INF;
-      int arg = 0;
-      if (s <= smax && b >= s) {
-        const T* col = cur + (b - s);
-        const T* jl = jmp + l * L;
-        val = col[0] + jl[0];
-        for (int j = 1; j < L; ++j) {
-          const T cand = col[j * B1] + jl[j];
-          if (cand < val) {
-            val = cand;
-            arg = j;
-          }
-        }
-      }
-      nxt[idx] = st[l] + val;
-      Ui[idx] = static_cast<UT>(arg);
-    }
-    __syncthreads();  // Φ_i complete; Φ_{i+1}'s buffer is free to overwrite
-    T* t = cur;
-    cur = nxt;
-    nxt = t;
-  }
-  for (int idx = threadIdx.x; idx < P; idx += blockDim.x) phi0[idx] = cur[idx];
-}
-
-template <typename T, typename UT>
-int launch(const void* stage, const void* btilde, const void* jump, void* U,
-           void* phi0, int nt, int L, int B, int smax, int threads,
-           size_t smem, cudaStream_t stream) {
-  auto kern = dp_build_kernel<T, UT>;
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  kern<<<1, threads, smem, stream>>>(
-      static_cast<const T*>(stage), static_cast<const int32_t*>(btilde),
-      static_cast<const T*>(jump), static_cast<UT*>(U), static_cast<T*>(phi0),
-      nt, L, B, smax);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
+#include "dp_build.cuh"
 
 extern "C" {
 
@@ -131,17 +34,8 @@ extern "C" {
 int mioc_dp_build(const void* stage, const void* btilde, const void* jump,
                   void* U, void* phi0, int nt, int L, int B, int smax,
                   int dtype_bytes, int u_bytes, int threads, void* stream) {
-  const size_t smem = (size_t)(2 * L * (B + 1) + L * L) * dtype_bytes;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype_bytes == 8 && u_bytes == 1)
-    return launch<double, int8_t>(stage, btilde, jump, U, phi0, nt, L, B, smax, threads, smem, s);
-  if (dtype_bytes == 8 && u_bytes == 4)
-    return launch<double, int32_t>(stage, btilde, jump, U, phi0, nt, L, B, smax, threads, smem, s);
-  if (dtype_bytes == 4 && u_bytes == 1)
-    return launch<float, int8_t>(stage, btilde, jump, U, phi0, nt, L, B, smax, threads, smem, s);
-  if (dtype_bytes == 4 && u_bytes == 4)
-    return launch<float, int32_t>(stage, btilde, jump, U, phi0, nt, L, B, smax, threads, smem, s);
-  return -1;
+  return mioc::dp_build_dispatch(stage, btilde, jump, U, phi0, 1, nt, L, B, smax,
+                                 dtype_bytes, u_bytes, threads, stream);
 }
 
 }  // extern "C"

@@ -57,16 +57,21 @@ def lvm_from_params(params: Mapping, *, device=None, dtype=None) -> LVMObj:
 
 def tables_from_pallas(U, phi0, *, nt: int, L: int, B: int, device=None):
     """DP tables in the Pallas padded layout — ``U (T ≥ nt-1, Lp, Bp)``,
-    ``phi0 (Lp, Bp)`` — sliced to the port's exact ``(nt-1, L, B+1)`` /
-    ``(L, B+1)``, as contiguous tensors of the same element types on
-    ``device`` (``None`` means ``"cuda"``, as for every entry point)."""
+    ``phi0 (Lp, Bp)``, or batched over starts, ``U (S, T, Lp, Bp)``, ``phi0
+    (S, Lp, Bp)`` — sliced to the port's exact ``(nt-1, L, B+1)`` / ``(L,
+    B+1)`` (with the start axis kept), as contiguous tensors of the same
+    element types on ``device`` (``None`` means ``"cuda"``, as for every
+    entry point)."""
     U = np.asarray(U)
     phi0 = np.asarray(phi0)
-    if U.shape[0] < nt - 1 or U.shape[1] < L or U.shape[2] < B + 1:
+    if U.ndim != phi0.ndim + 1 or phi0.ndim not in (2, 3):
+        raise ValueError(f"U {U.shape} and phi0 {phi0.shape} are not one table "
+                         "set or a batch of them")
+    if U.shape[-3] < nt - 1 or U.shape[-2] < L or U.shape[-1] < B + 1:
         raise ValueError(f"U {U.shape} is smaller than ({nt - 1}, {L}, {B + 1})")
-    if phi0.shape[0] < L or phi0.shape[1] < B + 1:
+    if phi0.shape[-2] < L or phi0.shape[-1] < B + 1:
         raise ValueError(f"phi0 {phi0.shape} is smaller than ({L}, {B + 1})")
     dev = resolve_device(device)
-    U_t = torch.from_numpy(np.ascontiguousarray(U[: nt - 1, :L, : B + 1])).to(dev)
-    phi_t = torch.from_numpy(np.ascontiguousarray(phi0[:L, : B + 1])).to(dev)
+    U_t = torch.from_numpy(np.ascontiguousarray(U[..., : nt - 1, :L, : B + 1])).to(dev)
+    phi_t = torch.from_numpy(np.ascontiguousarray(phi0[..., :L, : B + 1])).to(dev)
     return U_t, phi_t

@@ -50,25 +50,32 @@ class LVMObj(ODEObjective):
         self._v1 = torch.as_tensor(self.v1, device=self.device)
         self._v2 = torch.as_tensor(self.v2, device=self.device)
 
-    # Dynamics (example_fishing.jl:56-76).  ``a = c1·(u·v1)`` and
-    # ``c = c2·(u·v2)`` depend on the control only: the sweeps compute them
-    # for all steps at once (step_terms) with the same per-step arithmetic.
+    # The batched sweeps compute every row with the single sweep's bits
+    # (elementwise last-axis code below, fold sums in the ODE base class).
+    _batched_sweeps_bitexact = True
+
+    # Dynamics (example_fishing.jl:56-76), written on the last axis so that
+    # every function takes one row or any batch of rows.  ``a = c1·(u·v1)``
+    # and ``c = c2·(u·v2)`` depend on the control only: the sweeps compute
+    # them for all rows and steps at once (step_terms) with the same per-step
+    # arithmetic.
     def _rhs(self, y, a, c):
+        y0, y1 = y[..., 0], y[..., 1]
         return torch.stack([
-            y[0] * (self.alpha - self.beta * y[1] - a),
-            y[1] * (-self.gamma + self.delta * y[0] - c),
-        ])
+            y0 * (self.alpha - self.beta * y1 - a),
+            y1 * (-self.gamma + self.delta * y0 - c),
+        ], dim=-1)
 
     def _rhsT_lam(self, y, lam, a, c):
+        y0, y1 = y[..., 0], y[..., 1]
+        l0, l1 = lam[..., 0], lam[..., 1]
         return torch.stack([
-            (self.alpha - self.beta * y[1] - a) * lam[0]
-            + self.delta * y[1] * lam[1],
-            -self.beta * y[0] * lam[0]
-            + (-self.gamma + self.delta * y[0] - c) * lam[1],
-        ])
+            (self.alpha - self.beta * y1 - a) * l0 + self.delta * y1 * l1,
+            -self.beta * y0 * l0 + (-self.gamma + self.delta * y0 - c) * l1,
+        ], dim=-1)
 
     def _couplings(self, u):
-        # u: one control row (M,) or the whole control (nt, M).
+        # u: one control row (M,) or any batch (..., M).
         return self.c1 * const_dot(u, self.v1), self.c2 * const_dot(u, self.v2)
 
     def step_terms(self, x):
@@ -79,17 +86,19 @@ class LVMObj(ODEObjective):
         return self._rhs(y, a, c)
 
     def F_step(self, y, x, k, terms):
-        return self._rhs(y, terms[0][k], terms[1][k])
+        return self._rhs(y, terms[0][..., k], terms[1][..., k])
 
     def Fy(self, y, u, i):
         a, c = self._couplings(u)
+        y0, y1 = y[..., 0], y[..., 1]
         return torch.stack([
-            torch.stack([self.alpha - self.beta * y[1] - a, -self.beta * y[0]]),
-            torch.stack([self.delta * y[1], -self.gamma + self.delta * y[0] - c]),
-        ])
+            torch.stack([self.alpha - self.beta * y1 - a, -self.beta * y0], dim=-1),
+            torch.stack([self.delta * y1, -self.gamma + self.delta * y0 - c], dim=-1),
+        ], dim=-2)
 
     def Fu(self, y, u, i):
-        return torch.stack([-self.c1 * y[0] * self._v1, -self.c2 * y[1] * self._v2])
+        return torch.stack([(-self.c1 * y[..., 0])[..., None] * self._v1,
+                            (-self.c2 * y[..., 1])[..., None] * self._v2], dim=-2)
 
     # Adjoint product Fyᵀλ written out (the default is torch.func.vjp of F).
     def FyT_lam(self, y, u, lam, i):
@@ -97,14 +106,28 @@ class LVMObj(ODEObjective):
         return self._rhsT_lam(y, lam, a, c)
 
     def FyT_lam_step(self, y, x, lam, k, terms):
-        return self._rhsT_lam(y, lam, terms[0][k], terms[1][k])
+        return self._rhsT_lam(y, lam, terms[0][..., k], terms[1][..., k])
 
     # Tracking objective (example_fishing.jl:79-92).
     def G(self, y, u, i):
-        return 0.5 * (y[0] - 1.0) ** 2 + 0.5 * (y[1] - 1.0) ** 2
+        return 0.5 * (y[..., 0] - 1.0) ** 2 + 0.5 * (y[..., 1] - 1.0) ** 2
 
     def Gy(self, y, u, i):
         return y - 1.0
 
     def Gu(self, y, u, i):
         return torch.zeros_like(u)
+
+    # Batched hooks: the functions above already take (S, ·) rows.
+    def G_rows(self, ys, us, idx):
+        return self.G(ys, us, idx)
+
+    def Gy_rows(self, y, u, i):
+        return self.Gy(y, u, i)
+
+    def df_rows(self, ys0, x, lam):
+        # −F_uᵀλ + G_u, elementwise: the 2-term product per control column
+        # in a fixed order (a matmul's order could change with the batch).
+        Fu = self.Fu(ys0, x, None)  # (S, nt, 2, M)
+        return (-(Fu[..., 0, :] * lam[..., 0:1] + Fu[..., 1, :] * lam[..., 1:2])
+                + self.Gu(ys0, x, None))

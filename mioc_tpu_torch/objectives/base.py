@@ -48,6 +48,11 @@ class Objective:
     nt: int
     nu: int = 0
     nv: int = 0
+    # True when the batched sweeps compute every row with arithmetic
+    # bit-identical to the single sweep of that row (elementwise per-step
+    # code, fixed-order sums).  The device TRM's speculative-wave default
+    # reads it (solvers/trm_device.py); mioc_tpu.objectives.base:99.
+    _batched_sweeps_bitexact = False
 
     def __init__(self):
         self.f: float = 0.0

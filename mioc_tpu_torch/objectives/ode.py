@@ -16,17 +16,23 @@ recursion, index for index (0-based, time-major)::
     λ_k = λ_{k+1} + τ( F_y(y_{k+1},u_{k+1})ᵀ λ_{k+1} − G_y(y_{k+1},u_{k+1}) )
     df_k = −F_u(y_k, u_k)ᵀ λ_k + G_u(y_k, u_k)
 
-Both sweeps are Python loops of small tensor ops on the objective's device
-(on the card they are bound by kernel-launch latency; a CUDA graph or a sweep
-kernel is later work).  The per-step quadrature and gradient terms are
-evaluated for all steps at once with ``torch.func.vmap``, which computes
-each step with the same arithmetic as a single call.
+Both sweeps run over a batch of S controls at once (:meth:`_forward_batch`,
+:meth:`_adjoint_batch`): each time step is one set of tensor ops on ``(S, ·)``
+tensors, so a batch costs the launches of one sweep.  A single evaluation is
+the batch of one row, so every row of a batch has the bits of the single
+sweep of that row, whatever S is: the per-step arithmetic is elementwise and
+the trapezoid sum is :func:`~mioc_tpu_torch.ops.tv.fold_sum`.  On the card
+the sweeps are bound by kernel-launch latency (a CUDA graph or a sweep
+kernel is later work).
 
-Users implement ``F(y, u, i)`` and ``G(y, u, i)`` only; the Jacobians default
-to ``torch.func`` (``jacfwd``, ``vjp``, ``grad``) of those.  A model may also
-precompute control-only terms for all steps at once (:meth:`step_terms`) and
-consume them in :meth:`F_step` / :meth:`FyT_lam_step`, provided it keeps the
-per-step order of operations, so that f stays bit-comparable.
+Users implement ``F(y, u, i)`` and ``G(y, u, i)`` for one row only; the
+Jacobians default to ``torch.func`` (``jacfwd``, ``vjp``, ``grad``) of those,
+and the batched hooks (:meth:`F_step`, :meth:`FyT_lam_step`, :meth:`G_rows`,
+:meth:`Gy_rows`, :meth:`df_rows`) default to ``torch.func.vmap`` of the
+per-row functions, so any model gets the batched sweeps.  A model whose
+functions work on the last axis overrides the hooks with code that needs no
+vmap (fishing does), and may precompute control-only terms for all steps at
+once (:meth:`step_terms`), keeping the per-step order of operations.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ import torch
 from torch.func import grad, jacfwd, vjp, vmap
 
 from .._device import resolve_device, resolve_dtype
+from ..ops.tv import fold_sum
 from .base import LazyObjective
 
 __all__ = ["ODEObjective", "const_dot"]
@@ -45,8 +52,8 @@ def const_dot(u, v):
     """Dot of ``u``'s last axis with a small constant vector ``v``, unrolled
     as ``0 + v_0·u_0 + v_1·u_1 + …`` with Python-float coefficients — the
     order of ``mioc_tpu.objectives.ode.const_dot``.  ``u`` may be one control
-    row ``(M,)`` or a whole time-major control ``(nt, M)``: the elementwise
-    arithmetic per step is the same."""
+    row ``(M,)`` or any batch ``(..., M)``: the elementwise arithmetic per
+    row is the same."""
     v = np.asarray(v)
     return sum(float(c) * u[..., m] for m, c in enumerate(v.ravel()))
 
@@ -59,7 +66,7 @@ class ODEObjective(LazyObjective):
     """Abstract ODE objective.  Subclasses set dimensions and implement
     ``F(self, y, u, i)`` (rhs, shape ``(ny,)``) and ``G(self, y, u, i)``
     (running cost, scalar); optionally ``Fy``, ``FyT_lam``, ``Fu``, ``Gy``,
-    ``Gu`` and the sweep hooks ``step_terms``/``F_step``/``FyT_lam_step``.
+    ``Gu`` and the batched sweep hooks.
 
     ``device=None`` means ``"cuda"`` (raises without CUDA; pass ``"cpu"``);
     ``dtype=None`` means float64.
@@ -84,8 +91,15 @@ class ODEObjective(LazyObjective):
         self.x = torch.zeros((self.nt, self.nx), dtype=self.dtype, device=self.device)
         self.state = None    # (nt, ny): y_1 … y_nt  (reference obj.state)
         self.adjoint = None  # (nt, ny): λ_1 … λ_nt  (reference obj.adjoint)
+        # G arguments per the reference: k=0: G(0, y_0, u_0); 1≤k≤nt-1:
+        # G(k, y_k, u_k); k=nt: G(nt-1, y_nt, u_{nt-1}).  Trapezoid weights.
+        self._g_idx = torch.clamp(torch.arange(self.nt + 1, device=self.device),
+                                  max=self.nt - 1)
+        w = np.ones(self.nt + 1)
+        w[0] = w[-1] = 0.5
+        self._trap_w = torch.as_tensor(w, dtype=self.dtype, device=self.device)
 
-    # -- user dynamics ---------------------------------------------------------
+    # -- user dynamics (one row) -----------------------------------------------
     def F(self, y, u, i):
         raise NotImplementedError
 
@@ -111,70 +125,90 @@ class ODEObjective(LazyObjective):
     def Gu(self, y, u, i):
         return grad(lambda uu: self.G(y, uu, i))(u)
 
-    # -- sweep hooks -----------------------------------------------------------
+    # -- batched sweep hooks (S rows) --------------------------------------------
     def step_terms(self, x):
-        """Control-only terms of ``F`` for all steps at once (default none)."""
+        """Control-only terms of ``F`` for all rows and steps of ``x (S, nt,
+        nx)`` at once (default none)."""
         return None
 
     def F_step(self, y, x, k, terms):
-        """``F(y, x[k], k)``; ``terms`` is :meth:`step_terms` of ``x``."""
-        return self.F(y, x[k], k)
+        """``F(y[s], x[s, k], k)`` for every row: ``y (S, ny)`` → ``(S, ny)``;
+        ``terms`` is :meth:`step_terms` of ``x``."""
+        return vmap(lambda yy, uu: self.F(yy, uu, k))(y, x[:, k])
 
     def FyT_lam_step(self, y, x, lam, k, terms):
-        """``FyT_lam(y, x[k], lam, k)``; ``terms`` is :meth:`step_terms` of ``x``."""
-        return self.FyT_lam(y, x[k], lam, k)
+        """``FyT_lam(y[s], x[s, k], lam[s], k)`` for every row."""
+        return vmap(lambda yy, uu, ll: self.FyT_lam(yy, uu, ll, k))(y, x[:, k], lam)
 
-    # -- sweeps ----------------------------------------------------------------
-    def _forward(self, x):
-        """``x (nt, nx) → (f, ys)``: 0-d ``f`` and ``ys[k] = y_{k+1}``, ``(nt, ny)``."""
-        tau, nt = self.tau, self.nt
-        terms = self.step_terms(x)
-        y = self.state0
-        ys = []
-        for k in range(nt):
-            y = y + tau * self.F_step(y, x, k, terms)
-            ys.append(y)
-        ys = torch.stack(ys)
-        ys_all = torch.cat([self.state0[None], ys])  # y_0 … y_nt
-        # G arguments per the reference: k=0: G(0, y_0, u_0); 1≤k≤nt-1:
-        # G(k, y_k, u_k); k=nt: G(nt-1, y_nt, u_{nt-1}).
-        ar = torch.arange(nt + 1, device=x.device)
-        u_idx = torch.clamp(ar, max=nt - 1)
-        gvals = vmap(self.G)(ys_all, x[u_idx], u_idx)
-        w = torch.ones(nt + 1, dtype=x.dtype, device=x.device)
-        w[0] = 0.5
-        w[nt] = 0.5
-        return tau * torch.sum(w * gvals), ys
+    def G_rows(self, ys, us, idx):
+        """Running cost at every row and step: ``ys (S, n, ny)``, ``us (S, n,
+        nx)`` and time indices ``idx (n,)`` give ``(S, n)``."""
+        return vmap(vmap(self.G), in_dims=(0, 0, None))(ys, us, idx)
 
-    def _adjoint(self, x, ys):
-        """``(x, ys) → (df (nt, nx), lam (nt, ny))``."""
-        tau, nt = self.tau, self.nt
-        terms = self.step_terms(x)
-        lamT = -0.5 * tau * self.Gy(ys[-1], x[-1], nt)  # ODEObjective.jl:165-166
-        lam = lamT
-        lams = [lamT]
-        # k = nt-2 … 0 uses (y_{k+1}, u_{k+1}) = (ys[k], x[k+1]).
-        for k in range(nt - 2, -1, -1):
-            y = ys[k]
-            lam = lam + tau * (self.FyT_lam_step(y, x, lam, k + 1, terms)
-                               - self.Gy(y, x[k + 1], k + 1))
-            lams.append(lam)
-        lam = torch.stack(lams[::-1])  # λ, 0-based k
-        ys0 = torch.cat([self.state0[None], ys[:-1]])  # y_0 … y_{nt-1}
+    def Gy_rows(self, y, u, i):
+        """``Gy(y[s], u[s], i)`` for every row: ``(S, ny)`` → ``(S, ny)``."""
+        return vmap(lambda yy, uu: self.Gy(yy, uu, i))(y, u)
 
+    def df_rows(self, ys0, x, lam):
+        """The gradient term ``−F_uᵀλ + G_u`` at every row and step:
+        ``ys0 (S, nt, ny)``, ``x (S, nt, nx)``, ``lam (S, nt, ny)`` give
+        ``(S, nt, nx)``."""
         def dfk(y, u, lk, i):
             return -self.Fu(y, u, i).T @ lk + self.Gu(y, u, i)
 
-        df = vmap(dfk)(ys0, x, lam, torch.arange(nt, device=x.device))
-        return df, lam
+        idx = torch.arange(self.nt, device=x.device)
+        return vmap(vmap(dfk), in_dims=(0, 0, 0, None))(ys0, x, lam, idx)
+
+    # -- sweeps ----------------------------------------------------------------
+    def _forward_batch(self, xs):
+        """``xs (S, nt, nx) → (f (S,), ys (nt, S, ny))`` with ``ys[k, s] =
+        y_{k+1}`` of row ``s``: TIME-major with the batch on axis 1, the JAX
+        package's layout (select ``ys[:, s]``)."""
+        tau, nt = self.tau, self.nt
+        S = xs.shape[0]
+        terms = self.step_terms(xs)
+        y0 = self.state0.expand(S, self.ny)
+        y = y0
+        ys = []
+        for k in range(nt):
+            y = y + tau * self.F_step(y, xs, k, terms)
+            ys.append(y)
+        ys = torch.stack(ys)  # (nt, S, ny)
+        ys_all = torch.cat([y0[None], ys]).transpose(0, 1)  # (S, nt+1, ny)
+        gvals = self.G_rows(ys_all, xs[:, self._g_idx], self._g_idx)
+        return tau * fold_sum(self._trap_w * gvals), ys
+
+    def _adjoint_batch(self, xs, ys):
+        """``(xs (S, nt, nx), ys (nt, S, ny)) → (df (S, nt, nx), lam (S, nt,
+        ny))``."""
+        tau, nt = self.tau, self.nt
+        S = xs.shape[0]
+        terms = self.step_terms(xs)
+        lam = -0.5 * tau * self.Gy_rows(ys[-1], xs[:, -1], nt)  # ODEObjective.jl:165-166
+        lams = [lam]
+        # k = nt-2 … 0 uses (y_{k+1}, u_{k+1}) = (ys[k], x[k+1]).
+        for k in range(nt - 2, -1, -1):
+            y = ys[k]
+            lam = lam + tau * (self.FyT_lam_step(y, xs, lam, k + 1, terms)
+                               - self.Gy_rows(y, xs[:, k + 1], k + 1))
+            lams.append(lam)
+        lam = torch.stack(lams[::-1], dim=1)  # (S, nt, ny), 0-based k
+        ys0 = torch.cat([self.state0.expand(1, S, self.ny), ys[:-1]])  # y_0 … y_{nt-1}
+        return self.df_rows(ys0.transpose(0, 1), xs, lam), lam
 
     def _forward_batch_with(self, xs):
-        """K-row batched forward ``xs (K, nt, nx) → (fvals (K,), ys (nt, K, ny))``.
-        ``ys`` is TIME-major with the batch axis second, the JAX package's
-        layout; each row is :meth:`_forward` of that row, bit for bit."""
-        outs = [self._forward(x) for x in xs]
-        return (torch.stack([f for f, _ in outs]),
-                torch.stack([ys for _, ys in outs], dim=1))
+        """The JAX package's name for :meth:`_forward_batch`."""
+        return self._forward_batch(xs)
+
+    def _forward(self, x):
+        """``x (nt, nx) → (f, ys)``: 0-d ``f`` and ``ys[k] = y_{k+1}``, ``(nt, ny)``."""
+        f, ys = self._forward_batch(x[None])
+        return f[0], ys[:, 0]
+
+    def _adjoint(self, x, ys):
+        """``(x, ys) → (df (nt, nx), lam (nt, ny))``."""
+        df, lam = self._adjoint_batch(x[None], ys[:, None])
+        return df[0], lam[0]
 
     # -- protocol hooks --------------------------------------------------------
     def eval_f_impl(self, x, cache: bool):

@@ -1,13 +1,21 @@
-"""Wrapper of the ``chase`` CUDA kernel (``csrc/chase.cu``).
+"""Wrappers of the chase CUDA kernels.
 
-Counterpart of ``mioc_tpu.ops.backtrack_pallas`` (kernel ``_bt_kernel``).  The
-source note in ``chase.cu`` says what bounds the kernel and what its design
-does about it.  :func:`chase` takes CUDA tensors only: it checks device,
-dtype, shape and contiguity, allocates the output with ``torch.empty``,
-launches on the current stream and raises if the launch failed.  It never
-falls back to the plain version (``bellman.backtrack_plain``).  The level
-lookup ``levels[level_idx]`` stays a torch index in ``bellman.backtrack``
-(the TPU kernel's one-hot ``_levels_at`` worked around a TPU gather).
+* :func:`chase` — ``csrc/chase.cu``, counterpart of
+  ``mioc_tpu.ops.backtrack_pallas._bt_kernel``: one start, one cap;
+* :func:`chase_batched` — ``csrc/chase_batched.cu``, counterpart of
+  ``_bt_kernel_batched``: S starts, a cap per start;
+* :func:`chase_trials` — ``csrc/chase_trials.cu``, counterpart of
+  ``_bt_kernel_trials``: Kt caps per start against that start's tables.
+
+The source notes say what bounds each kernel and what its design does about
+it.  Each wrapper takes CUDA tensors only: it checks device, dtype, shape and
+layout, allocates the output with ``torch.empty``, launches on the current
+stream and raises if the launch failed.  None falls back to the plain
+versions (``bellman.backtrack_plain`` and its batched forms).  A cap may be a
+Python int or an int32 tensor on the card, which the kernel reads from device
+memory, so the device TRM never reads a budget back to the host.  The level
+lookup ``levels[level_idx]`` stays a torch index in ``bellman`` (the TPU
+kernel's one-hot ``_levels_at`` worked around a TPU gather).
 """
 
 from __future__ import annotations
@@ -16,44 +24,72 @@ import ctypes
 
 import torch
 
-__all__ = ["chase"]
+__all__ = ["chase", "chase_batched", "chase_trials", "MAX_TRIALS"]
+
+MAX_TRIALS = 128  # caps per start the trial-wave kernel takes
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
-def _fn():
+def _fn(lib_name: str, symbol: str, argtypes):
     from ._kernels import library
 
-    fn = library("chase").mioc_chase
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn = getattr(library(lib_name), symbol)
+    fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
 
 
-def chase(U, phi0, btilde, B_new: int):
-    """Launch the chase; returns ``level_idx (nt,)`` int32 on the card."""
+def _check_tables(U, phi0, btilde, batched: bool):
+    """Types, devices and shapes of one table set (``batched=False``) or of
+    S table sets; returns ``(nt, L, B)``."""
     if phi0.device.type != "cuda":
-        raise ValueError(f"chase takes CUDA tensors, got {phi0.device}")
-    L, B1 = phi0.shape
-    nt = btilde.shape[0]
+        raise ValueError(f"the chase kernels take CUDA tensors, got {phi0.device}")
     if phi0.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"phi0 must be float32 or float64, got {phi0.dtype}")
     if U.dtype not in (torch.int8, torch.int32):
         raise TypeError(f"U must be int8 or int32, got {U.dtype}")
     if btilde.dtype != torch.int32:
         raise TypeError(f"btilde must be int32, got {btilde.dtype}")
-    if U.shape != (nt - 1, L, B1) or btilde.shape != (nt, L):
+    lead = phi0.shape[:1] if batched else ()
+    if phi0.dim() != len(lead) + 2:
+        raise ValueError(f"shapes: phi0 {tuple(phi0.shape)}")
+    L, B1 = phi0.shape[-2:]
+    nt = btilde.shape[-2]
+    if U.shape != (*lead, nt - 1, L, B1) or btilde.shape != (*lead, nt, L):
         raise ValueError(f"shapes: U {tuple(U.shape)}, phi0 {tuple(phi0.shape)}, "
                          f"btilde {tuple(btilde.shape)}")
-    for name, t in (("U", U), ("phi0", phi0), ("btilde", btilde)):
+    for name, t in (("U", U), ("btilde", btilde)):
         if t.device != phi0.device:
             raise ValueError(f"{name} is on {t.device}, phi0 on {phi0.device}")
+    return nt, L, B1 - 1
+
+
+def _caps(B, shape, device) -> torch.Tensor:
+    """Budget caps as a contiguous int32 tensor of ``shape`` on ``device``
+    (an int32 tensor already there is used as it is, with no host read)."""
+    return torch.as_tensor(B, dtype=torch.int32, device=device).expand(shape).contiguous()
+
+
+def chase(U, phi0, btilde, B_new):
+    """Launch the chase of one start; ``B_new`` is an int or a 0-d int32
+    tensor on the card.  Returns ``level_idx (nt,)`` int32 on the card."""
+    nt, L, B = _check_tables(U, phi0, btilde, batched=False)
+    for name, t in (("U", U), ("phi0", phi0), ("btilde", btilde)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    B_dev, B_int = None, 0
+    if isinstance(B_new, torch.Tensor):
+        B_dev = _caps(B_new, (), phi0.device)
+    else:
+        B_int = int(B_new)
     out = torch.empty(nt, dtype=torch.int32, device=phi0.device)
+    fn = _fn("chase", "mioc_chase", [_P] * 5 + [_I] * 6 + [_P])
     with torch.cuda.device(phi0.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _fn()(phi0.data_ptr(), btilde.data_ptr(), U.data_ptr(),
-                    out.data_ptr(), nt, L, B1 - 1, int(B_new),
-                    phi0.element_size(), U.element_size(), stream)
+        err = fn(phi0.data_ptr(), btilde.data_ptr(), U.data_ptr(),
+                 None if B_dev is None else B_dev.data_ptr(), out.data_ptr(),
+                 nt, L, B, B_int, phi0.element_size(), U.element_size(), stream)
     if err != 0:
         raise RuntimeError(f"chase launch failed: CUDA error {err}")
     chase.launches += 1
@@ -61,3 +97,78 @@ def chase(U, phi0, btilde, B_new: int):
 
 
 chase.launches = 0
+
+
+def _start_stride(name, t) -> int:
+    """The start-axis stride of ``t`` in elements: each start's slice must be
+    contiguous, and the stride is its size (a contiguous batch) or 0 (one
+    table set expanded over the starts, read in place)."""
+    one = t[0]
+    if not one.is_contiguous() or t.stride(0) not in (0, one.numel()):
+        raise ValueError(f"{name} must be contiguous per start, with a start "
+                         f"stride of 0 or {one.numel()} (got {t.stride()})")
+    return t.stride(0)
+
+
+def chase_batched(U, phi0, btilde, B_new):
+    """Launch S chases, start ``s`` at cap ``B_new[s]`` (an int32 ``(S,)``
+    tensor on the card, or an int or sequence).  The tables ``U (S, nt-1, L,
+    B+1)``, ``phi0 (S, L, B+1)`` and ``btilde (S, nt, L)`` may be expanded
+    along the start axis (stride 0): the trial wave of a single solve chases
+    K caps against one table set with no copy.  Returns ``level_idx (S,
+    nt)`` int32 on the card."""
+    nt, L, B = _check_tables(U, phi0, btilde, batched=True)
+    S = phi0.shape[0]
+    strides = [_start_stride(n, t) for n, t in (("phi0", phi0), ("btilde", btilde),
+                                                ("U", U))]
+    caps = _caps(B_new, (S,), phi0.device)
+    out = torch.empty((S, nt), dtype=torch.int32, device=phi0.device)
+    fn = _fn("chase_batched", "mioc_chase_batched",
+             [_P] * 5 + [_I] * 4 + [_LL] * 3 + [_I] * 2 + [_P])
+    with torch.cuda.device(phi0.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(phi0.data_ptr(), btilde.data_ptr(), U.data_ptr(), caps.data_ptr(),
+                 out.data_ptr(), S, nt, L, B, *strides, phi0.element_size(),
+                 U.element_size(), stream)
+    if err != 0:
+        raise RuntimeError(f"chase_batched launch failed: CUDA error {err}")
+    chase_batched.launches += 1
+    return out
+
+
+chase_batched.launches = 0
+
+
+def chase_trials(U, phi0, btilde, B_trials):
+    """Launch the trial wave: ``B_trials (S, Kt)`` caps (int32 on the card,
+    Kt ≤ 128) against each start's tables ``U (S, nt-1, L, B+1)``, ``phi0
+    (S, L, B+1)``, ``btilde (S, nt, L)``.  Returns ``level_idx (S, Kt, nt)``
+    int32 on the card; row ``(s, t)`` is :func:`chase` of start ``s`` at
+    ``B_trials[s, t]``."""
+    nt, L, B = _check_tables(U, phi0, btilde, batched=True)
+    for name, t in (("U", U), ("phi0", phi0), ("btilde", btilde)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    S = phi0.shape[0]
+    caps = torch.as_tensor(B_trials, dtype=torch.int32, device=phi0.device)
+    if caps.dim() != 2 or caps.shape[0] != S:
+        raise ValueError(f"B_trials must be (S={S}, Kt), got {tuple(caps.shape)}")
+    Kt = caps.shape[1]
+    if not 1 <= Kt <= MAX_TRIALS:
+        raise ValueError(f"the trial-wave chase takes 1 to {MAX_TRIALS} caps per "
+                         f"start, got {Kt}")
+    caps = caps.contiguous()
+    out = torch.empty((S, Kt, nt), dtype=torch.int32, device=phi0.device)
+    fn = _fn("chase_trials", "mioc_chase_trials", [_P] * 5 + [_I] * 7 + [_P])
+    with torch.cuda.device(phi0.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(phi0.data_ptr(), btilde.data_ptr(), U.data_ptr(), caps.data_ptr(),
+                 out.data_ptr(), S, Kt, nt, L, B, phi0.element_size(),
+                 U.element_size(), stream)
+    if err != 0:
+        raise RuntimeError(f"chase_trials launch failed: CUDA error {err}")
+    chase_trials.launches += 1
+    return out
+
+
+chase_trials.launches = 0

@@ -14,11 +14,16 @@ the ``(level combination l, budget b)`` plane:
     Φ_i[l, b]  = stage[i, l] + tmp[l, b − b̃[i, l]]       (+inf where b < b̃,
                                                           or b̃ > smax)
 
-This module holds the PLAIN PyTorch versions (``build_tables_plain``,
-``backtrack_plain``) and the two public wrappers, :func:`build_tables` and
-:func:`backtrack`.  A wrapper takes the plain version only for tensors on the
+This module holds the PLAIN PyTorch versions and the public wrappers: the
+single build and chase (:func:`build_tables`, :func:`backtrack`), and their
+batched forms over S starts that share one jump table
+(:func:`build_tables_batched`, :func:`backtrack_batched` with a budget per
+start, :func:`backtrack_trials` with Kt budgets per start against that
+start's tables).  A wrapper takes the plain version only for tensors on the
 CPU.  For CUDA tensors it launches the hand-written kernel
-(:mod:`.bellman_cuda`, :mod:`.backtrack_cuda`) or raises; it never falls back.
+(:mod:`.bellman_cuda`, :mod:`.backtrack_cuda`) or raises; it never falls
+back.  Budgets may be Python ints or int32 tensors on the tables' device, so
+a chase on the card needs no host read of its budget.
 
 Semantics kept from the JAX package (each is what makes the port's paths
 bit-identical to the reference's):
@@ -49,8 +54,14 @@ __all__ = [
     "u_dtype",
     "build_tables",
     "build_tables_plain",
+    "build_tables_batched",
+    "build_tables_batched_plain",
     "backtrack",
     "backtrack_plain",
+    "backtrack_batched",
+    "backtrack_batched_plain",
+    "backtrack_trials",
+    "backtrack_trials_plain",
     "dp_solve",
 ]
 
@@ -58,14 +69,22 @@ __all__ = [
 def stage_tables(grad, u_old, levels, tau):
     """Per-(time, combination) stage cost and budget use.
 
-    stage[i, l]  = τ · ∇f_i · ν_l          (``HelpFunctions.jl:34-36, 52-56``)
-    btilde[i, l] = ‖ν_l − u_old_i‖₁        (integer, ``HelpFunctions.jl:37, 57``)
+    stage[..., i, l]  = τ · ∇f_i · ν_l       (``HelpFunctions.jl:34-36, 52-56``)
+    btilde[..., i, l] = ‖ν_l − u_old_i‖₁     (integer, ``HelpFunctions.jl:37, 57``)
+
+    ``grad`` and ``u_old`` are ``(nt, M)`` or carry a start axis, ``(S, nt,
+    M)``.  The dot over M stays a matmul: the CPU's takes it as the JAX
+    package does (a fused multiply-add chain over m), which an elementwise
+    order would not reproduce.  The M-term dot of one row is computed
+    alone whatever the row count, so start ``s`` of a batch has the bits of
+    the single call; the tests hold that on the CPU and ``chip_smoke.py``
+    on the card.
     """
     levels = torch.as_tensor(levels, dtype=grad.dtype, device=grad.device)
-    stage = tau * (grad @ levels.T)  # (nt, L)
+    stage = tau * (grad @ levels.T)  # (..., nt, L)
     btilde = torch.round(
-        (levels[None, :, :] - u_old[:, None, :]).abs().sum(-1)
-    ).to(torch.int32)  # (nt, L)
+        (levels - u_old[..., :, None, :]).abs().sum(-1)
+    ).to(torch.int32)  # (..., nt, L)
     return stage, btilde
 
 
@@ -83,6 +102,37 @@ def u_dtype(L: int) -> torch.dtype:
     return torch.int8 if L <= 127 else torch.int32
 
 
+def _build_plain(stage, btilde, jump_cost, B: int, smax):
+    """The plain backward recursion over S starts at once: ``stage``/
+    ``btilde`` ``(S, nt, L)``, one shared ``jump_cost (L, L)``.  Each step is
+    a few small tensor ops on the whole batch, so start ``s`` has the bits of
+    a batch of one."""
+    S, nt, L = stage.shape
+    smax = B if smax is None else min(smax, B)
+    dev = stage.device
+    inf = torch.tensor(torch.inf, dtype=stage.dtype, device=dev)
+    b_lane = torch.arange(B + 1, device=dev)
+    btilde = btilde.to(torch.int64)
+
+    # Terminal layer i = nt-1: exact-budget seed (HelpFunctions.jl:29-43).
+    phi = torch.where(b_lane == btilde[:, -1, :, None],
+                      stage[:, -1, :, None], inf)  # (S, L, B+1)
+    U = torch.empty((S, max(nt - 1, 0), L, B + 1), dtype=u_dtype(L), device=dev)
+    for i in range(nt - 2, -1, -1):
+        tot = phi[:, None, :, :] + jump_cost[None, :, :, None]  # (S, l, j, b)
+        val, arg = torch.min(tot, dim=2)  # first minimal j
+        # Budget shift out[l, b] = val[l, b − b̃_l] as a gather; b < b̃ and
+        # b̃ > smax give +inf / arg 0 (the JAX roll-select's fill).
+        s = btilde[:, i, :, None]  # (S, L, 1)
+        src = b_lane - s
+        ok = (src >= 0) & (s <= smax)
+        src = src.clamp(min=0)
+        new_phi = torch.where(ok, torch.gather(val, 2, src), inf)
+        U[:, i] = torch.where(ok, torch.gather(arg, 2, src), 0).to(U.dtype)
+        phi = stage[:, i, :, None] + new_phi
+    return U, phi
+
+
 def build_tables_plain(stage, btilde, jump_cost, B: int, smax: int = None):
     """Plain PyTorch backward recursion; returns ``(U, phi0)``.
 
@@ -92,30 +142,8 @@ def build_tables_plain(stage, btilde, jump_cost, B: int, smax: int = None):
     per time step); the card's production route is the kernel.
     """
     build_tables_plain.calls += 1
-    nt, L = stage.shape
-    smax = B if smax is None else min(smax, B)
-    dev = stage.device
-    inf = torch.tensor(torch.inf, dtype=stage.dtype, device=dev)
-    b_lane = torch.arange(B + 1, device=dev)
-    btilde = btilde.to(torch.int64)
-
-    # Terminal layer i = nt-1: exact-budget seed (HelpFunctions.jl:29-43).
-    phi = torch.where(b_lane[None, :] == btilde[-1][:, None],
-                      stage[-1][:, None], inf)  # (L, B+1)
-    U = torch.empty((max(nt - 1, 0), L, B + 1), dtype=u_dtype(L), device=dev)
-    for i in range(nt - 2, -1, -1):
-        tot = phi[None, :, :] + jump_cost[:, :, None]  # (l, j, b)
-        val, arg = torch.min(tot, dim=1)  # first minimal j
-        # Budget shift out[l, b] = val[l, b − b̃_l] as a gather; b < b̃ and
-        # b̃ > smax give +inf / arg 0 (the JAX roll-select's fill).
-        s = btilde[i][:, None]  # (L, 1)
-        src = b_lane[None, :] - s
-        ok = (src >= 0) & (s <= smax)
-        src = src.clamp(min=0)
-        new_phi = torch.where(ok, torch.gather(val, 1, src), inf)
-        U[i] = torch.where(ok, torch.gather(arg, 1, src), 0).to(U.dtype)
-        phi = stage[i][:, None] + new_phi
-    return U, phi
+    U, phi = _build_plain(stage[None], btilde[None], jump_cost, B, smax)
+    return U[0], phi[0]
 
 
 build_tables_plain.calls = 0
@@ -131,46 +159,76 @@ def build_tables(stage, btilde, jump_cost, B: int, smax: int = None):
     return dp_build(stage, btilde, jump_cost, B, B if smax is None else smax)
 
 
-def _seed(phi0, B_new: int):
-    L, B1 = phi0.shape
-    b_lane = torch.arange(B1, device=phi0.device)
-    masked = torch.where(b_lane[None, :] <= B_new, phi0,
-                         torch.tensor(torch.inf, dtype=phi0.dtype,
-                                      device=phi0.device))
+def build_tables_batched_plain(stage, btilde, jump_cost, B: int, smax: int = None):
+    """Plain batched build: ``stage``/``btilde`` ``(S, nt, L)`` with one
+    shared ``jump_cost (L, L)`` give ``U (S, nt-1, L, B+1)`` and ``phi0 (S,
+    L, B+1)``; start ``s`` equals :func:`build_tables_plain` of that start,
+    bit for bit."""
+    build_tables_batched_plain.calls += 1
+    return _build_plain(stage, btilde, jump_cost, B, smax)
+
+
+build_tables_batched_plain.calls = 0
+
+
+def build_tables_batched(stage, btilde, jump_cost, B: int, smax: int = None):
+    """Batched DP tables (see :func:`build_tables_batched_plain`).  CPU
+    tensors take the plain version; CUDA tensors launch the
+    ``dp_build_batched`` kernel."""
+    if stage.device.type == "cpu":
+        return build_tables_batched_plain(stage, btilde, jump_cost, B, smax)
+    from .bellman_cuda import dp_build_batched
+
+    return dp_build_batched(stage, btilde, jump_cost, B, B if smax is None else smax)
+
+
+def _walk_plain(U, phi0, btilde, table, caps):
+    """Chase ``N = len(table)`` chains on host copies of S table sets: chain
+    ``n`` walks table set ``table[n]`` from the seed under cap ``caps[n]``.
+    The chase is a dependent pointer walk, so it runs as a Python loop over
+    the time steps, vectorised over the chains (integer arithmetic)."""
+    B1 = phi0.shape[-1]
+    nt = btilde.shape[1]
+    table = torch.as_tensor(table, dtype=torch.long)
+    caps = torch.as_tensor(caps).to(device="cpu", dtype=torch.long)
+    phi = phi0.cpu()[table]  # (N, L, B+1)
+    masked = torch.where(torch.arange(B1) <= caps[:, None, None], phi,
+                         torch.tensor(torch.inf, dtype=phi.dtype))
     # Row-major flat argmin over (L, B+1) = Julia's column-major scan
     # (HelpFunctions.jl:106): smallest l, then smallest b.
-    flat = int(torch.argmin(masked.reshape(-1)))
-    return flat // B1, flat % B1
-
-
-def backtrack_plain(U, phi0, btilde, B_new: int):
-    """Plain path chase; returns ``level_idx (nt,)`` int32 on ``phi0``'s
-    device.  The chase is a dependent pointer walk, so it runs as a Python
-    loop over a host copy of the tables."""
-    backtrack_plain.calls += 1
-    nt = btilde.shape[0]
-    l, b = _seed(phi0, int(B_new))
+    flat = torch.argmin(masked.reshape(len(table), -1), dim=1).numpy()
+    l, b = flat // B1, flat % B1
     U_h = U.cpu().numpy()
     bt_h = btilde.cpu().numpy()
-    out = np.empty(nt, dtype=np.int32)
-    out[0] = l
+    t = table.numpy()
+    out = np.empty((len(t), nt), dtype=np.int32)
+    out[:, 0] = l
     for k in range(nt - 1):
-        nl = int(U_h[k, l, b])
-        b -= int(bt_h[k, l])  # decrement AFTER lookup (HelpFunctions.jl:115-122)
+        nl = U_h[t, k, l, b].astype(np.int64)
+        b = b - bt_h[t, k, l]  # decrement AFTER lookup (HelpFunctions.jl:115-122)
         l = nl
-        out[k + 1] = l
+        out[:, k + 1] = l
     return torch.from_numpy(out).to(phi0.device)
+
+
+def backtrack_plain(U, phi0, btilde, B_new):
+    """Plain path chase at cap ``B_new`` (an int or a 0-d tensor); returns
+    ``level_idx (nt,)`` int32 on ``phi0``'s device."""
+    backtrack_plain.calls += 1
+    return _walk_plain(U[None], phi0[None], btilde[None], [0],
+                       torch.as_tensor(B_new).reshape(1))[0]
 
 
 backtrack_plain.calls = 0
 
 
-def backtrack(U, phi0, btilde, levels, B_new: int):
+def backtrack(U, phi0, btilde, levels, B_new):
     """Extract the optimal control from the DP tables (``eval_u_TRM!``).
 
     Returns ``(u, level_idx)``: ``u = levels[level_idx]`` of shape
-    ``(nt, M)`` and ``level_idx (nt,)`` int32.  CPU tensors take the plain
-    version; CUDA tensors launch the ``chase`` kernel.
+    ``(nt, M)`` and ``level_idx (nt,)`` int32.  ``B_new`` is an int or a
+    0-d int32 tensor.  CPU tensors take the plain version; CUDA tensors
+    launch the ``chase`` kernel.
     """
     if phi0.device.type == "cpu":
         level_idx = backtrack_plain(U, phi0, btilde, B_new)
@@ -178,8 +236,69 @@ def backtrack(U, phi0, btilde, levels, B_new: int):
         from .backtrack_cuda import chase
 
         level_idx = chase(U, phi0, btilde, B_new)
+    return _levels_at(levels, phi0, level_idx), level_idx
+
+
+def _levels_at(levels, phi0, level_idx):
     levels = torch.as_tensor(levels, dtype=phi0.dtype, device=phi0.device)
-    return levels[level_idx.long()], level_idx
+    return levels[level_idx.long()]
+
+
+def backtrack_batched_plain(U, phi0, btilde, B_new):
+    """Plain batched chase: tables ``U (S, nt-1, L, B+1)``, ``phi0 (S, L,
+    B+1)``, ``btilde (S, nt, L)`` and a cap per start ``B_new (S,)`` (or one
+    for all) give ``level_idx (S, nt)`` int32; row ``s`` equals
+    :func:`backtrack_plain` of start ``s`` at ``B_new[s]``."""
+    backtrack_batched_plain.calls += 1
+    S = phi0.shape[0]
+    caps = torch.as_tensor(B_new).reshape(-1).expand(S)
+    return _walk_plain(U, phi0, btilde, torch.arange(S), caps)
+
+
+backtrack_batched_plain.calls = 0
+
+
+def backtrack_trials_plain(U, phi0, btilde, B_trials):
+    """Plain trial-wave chase: ``B_trials (S, Kt)`` caps per start against
+    that start's tables give ``level_idx (S, Kt, nt)`` int32; row ``(s, t)``
+    equals :func:`backtrack_plain` of start ``s`` at ``B_trials[s, t]``."""
+    backtrack_trials_plain.calls += 1
+    S, Kt = B_trials.shape
+    table = torch.arange(S).repeat_interleave(Kt)
+    idx = _walk_plain(U, phi0, btilde, table, torch.as_tensor(B_trials).reshape(-1))
+    return idx.reshape(S, Kt, -1)
+
+
+backtrack_trials_plain.calls = 0
+
+
+def backtrack_batched(U, phi0, btilde, levels, B_new):
+    """Chase S table sets, each at its own cap ``B_new (S,)`` (an int32
+    tensor on the tables' device, or anything ``torch.as_tensor`` takes);
+    returns ``(u (S, nt, M), level_idx (S, nt))``.  CPU tensors take the
+    plain version; CUDA tensors launch the ``chase_batched`` kernel, which
+    also takes tables expanded along the start axis (batch stride 0)."""
+    if phi0.device.type == "cpu":
+        level_idx = backtrack_batched_plain(U, phi0, btilde, B_new)
+    else:
+        from .backtrack_cuda import chase_batched
+
+        level_idx = chase_batched(U, phi0, btilde, B_new)
+    return _levels_at(levels, phi0, level_idx), level_idx
+
+
+def backtrack_trials(U, phi0, btilde, levels, B_trials):
+    """Chase ``B_trials (S, Kt)`` caps per start against that start's
+    tables; returns ``(u (S, Kt, nt, M), level_idx (S, Kt, nt))``.  CPU
+    tensors take the plain version; CUDA tensors launch the
+    ``chase_trials`` kernel."""
+    if phi0.device.type == "cpu":
+        level_idx = backtrack_trials_plain(U, phi0, btilde, B_trials)
+    else:
+        from .backtrack_cuda import chase_trials
+
+        level_idx = chase_trials(U, phi0, btilde, B_trials)
+    return _levels_at(levels, phi0, level_idx), level_idx
 
 
 def dp_solve(grad, u_old, levels, jump_cost, tau, B: int, smax: int = None):

@@ -1,0 +1,84 @@
+"""Scenario/multistart batch parallelism.
+
+Counterpart of ``mioc_tpu.parallel.batch``:
+
+* :func:`make_ode_trm_step` — one full TRM inner step for a batch of
+  controls at once: a batched forward and adjoint, batched stage tables, the
+  batched DP build, the batched chase at ``B`` for every start and a batched
+  forward of the candidates (accept/halve logic stays with the caller);
+* :func:`multistart_solve` — full host-loop TRM solves from ``n_starts``
+  starts, returning the best.
+
+A device ``mesh`` (the JAX package's sharding of the batch over chips) is not
+ported yet and raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..ops.bellman import (
+    backtrack_batched,
+    build_tables_batched,
+    max_budget_use,
+    stage_tables,
+)
+from ..ops.levels import jump_cost_table
+from ..ops.tv import fold_sum, tv_rows
+
+__all__ = ["make_ode_trm_step", "multistart_solve"]
+
+_UNPORTED = "ROADMAP.md queue A item 6 (parallel/: device_mesh.py, shard_dp.py)"
+
+
+def make_ode_trm_step(obj, *, beta: float, p, delta0: float, mesh=None,
+                      compat_pinf: bool = False):
+    """Build ``step(u_batch) -> (u_new, J_new, J_model)`` for an ODE
+    objective on ``obj.device``.  ``u_batch`` is ``(S, nt, nx)``;
+    ``J_model[s]`` is the DP's model objective ``τ·Σ ∇f·u_new + β·TV``."""
+    if mesh is not None:
+        raise NotImplementedError(f"a device mesh is not ported yet: {_UNPORTED}")
+    adm = obj.admissible
+    dev, dtype = obj.device, obj.dtype
+    levels = torch.as_tensor(adm.levels, dtype=dtype, device=dev)
+    jump = torch.as_tensor(
+        jump_cost_table(adm.levels, p, beta=beta, compat_pinf=compat_pinf),
+        dtype=dtype, device=dev)
+    smax = max_budget_use(adm.levels)
+    B = int(np.floor(delta0 / obj.tau))
+    tau = obj.tau
+
+    def step(u_batch):
+        u = torch.as_tensor(u_batch, dtype=dtype, device=dev)
+        _, ys = obj._forward_batch(u)
+        grad, _ = obj._adjoint_batch(u, ys)
+        stage, btilde = stage_tables(grad, u, levels, tau)
+        U, phi0 = build_tables_batched(stage, btilde, jump, B, smax)
+        u_new, _ = backtrack_batched(U, phi0, btilde, levels, B)
+        f_new, _ = obj._forward_batch(u_new)
+        model = tau * fold_sum((grad * u_new).flatten(-2)) + beta * tv_rows(u_new, p)
+        return u_new, f_new, model
+
+    return step
+
+
+def multistart_solve(obj_factory, n_starts: int, par=None, seed: int = 0,
+                     x0s: Optional[np.ndarray] = None):
+    """Run full host-loop TRM solves from ``n_starts`` starts (``x0s`` or
+    ``rand_func(obj, seed=seed + s)``); return ``(best_result,
+    all_results)``.  ``obj_factory`` is a callable that makes a fresh
+    objective, or one objective reused for every start."""
+    from ..solvers.trm import TRMParameters, trm_solve
+    from ..utils.init import rand_func
+
+    par = par or TRMParameters()
+    results = []
+    for s in range(n_starts):
+        obj = obj_factory() if callable(obj_factory) else obj_factory
+        x0 = x0s[s] if x0s is not None else rand_func(obj, seed=seed + s)
+        results.append(trm_solve(obj, par, x0=x0))
+    best = min(results, key=lambda r: r.J)
+    return best, results

@@ -7,7 +7,8 @@ a machine with a card and no JAX it runs without the repo's conftest::
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 The shapes here cover what ``chip_smoke.py`` does not: the int32 U route
-(L > 127), nt = 1, budgets past B, the wrappers' refusals and the solve's
+(L > 127), nt = 1, S = 1 and Kt = 1, budgets past B and of 0, tables
+expanded along the start axis, the wrappers' refusals and the solves'
 launch counters at a small size.
 """
 
@@ -116,3 +117,116 @@ def test_small_solve_counts_launches(cuda_device):
     assert (ref.iterations, ref.inner_steps) == (res.iterations, res.inner_steps)
     np.testing.assert_array_equal(ref.u, res.u)
     np.testing.assert_allclose(res.J, ref.J, rtol=1e-12)
+
+
+# ------------------------------------------------------------ batched kernels
+
+
+def _batched_tables(adm, S, nt, B, dtype, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    grad = torch.as_tensor(rng.normal(size=(S, nt, adm.M)), dtype=dtype, device=dev)
+    u_old = torch.as_tensor(adm.levels[rng.integers(0, adm.L, size=(S, nt))],
+                            dtype=dtype, device=dev)
+    jump = torch.as_tensor(jump_cost_table(adm.levels, 1, beta=0.05), dtype=dtype,
+                           device=dev)
+    stage, btilde = tb.stage_tables(grad, u_old, adm.levels, 0.05)
+    return stage, btilde, jump, tb.max_budget_use(adm.levels)
+
+
+BATCHED_CASES = [
+    ("sos1-S1", lambda: bounded_sum_levels([[0, 1]] * 3, 1, 1), 1, 300, 40),
+    ("sos1", lambda: bounded_sum_levels([[0, 1]] * 3, 1, 1), 5, 257, 17),
+    ("L130", lambda: product_levels([list(range(13)), list(range(10))]), 3, 40, 30),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name,levels,S,nt,B", BATCHED_CASES)
+def test_batched_kernels_bit_equal_plain(cuda_device, name, levels, S, nt, B, dtype):
+    from mioc_tpu_torch.ops.backtrack_cuda import chase_batched, chase_trials
+    from mioc_tpu_torch.ops.bellman_cuda import dp_build_batched
+
+    adm = levels()
+    stage, btilde, jump, smax = _batched_tables(adm, S, nt, B, dtype, cuda_device)
+    U_k, phi_k = dp_build_batched(stage, btilde, jump, B, smax)
+    U_p, phi_p = tb.build_tables_batched_plain(stage, btilde, jump, B, smax)
+    assert U_k.dtype == tb.u_dtype(adm.L) and U_k.shape == (S, nt - 1, adm.L, B + 1)
+    assert torch.equal(U_k, U_p) and torch.equal(phi_k, phi_p)
+    # Caps per start, past B and 0 included; Kt = 1 and Kt = 6 trial waves.
+    caps = torch.tensor([B + 5, 0, B, B // 2, 1][:S], dtype=torch.int32,
+                        device=cuda_device)
+    assert torch.equal(chase_batched(U_k, phi_k, btilde, caps),
+                       tb.backtrack_batched_plain(U_k, phi_k, btilde, caps.cpu()))
+    for row in ([B], [B + 7, B, B // 2, B // 4, 1, 0]):
+        trials = torch.tensor([row] * S, dtype=torch.int32, device=cuda_device)
+        assert torch.equal(chase_trials(U_k, phi_k, btilde, trials),
+                           tb.backtrack_trials_plain(U_k, phi_k, btilde, trials.cpu()))
+
+
+def test_batched_chase_reads_expanded_tables(cuda_device):
+    """Tables expanded along the start axis (stride 0) are read in place."""
+    from mioc_tpu_torch.ops.backtrack_cuda import chase, chase_batched
+
+    adm = bounded_sum_levels([[0, 1]] * 3, 1, 1)
+    stage, btilde, jump, smax = _tables(adm, 200, 20, torch.float64, cuda_device)
+    U, phi0 = tb.build_tables(stage, btilde, jump, 20, smax)
+    K = 7
+    caps = torch.tensor([20, 10, 5, 2, 1, 0, 25], dtype=torch.int32, device=cuda_device)
+    out = chase_batched(U.expand(K, -1, -1, -1), phi0.expand(K, -1, -1),
+                        btilde.expand(K, -1, -1), caps)
+    for k in range(K):
+        assert torch.equal(out[k], chase(U, phi0, btilde, caps[k]))
+        assert torch.equal(out[k], chase(U, phi0, btilde, int(caps[k])))
+
+
+def test_batched_wrappers_refuse(cuda_device):
+    from mioc_tpu_torch.ops.backtrack_cuda import chase_batched, chase_trials
+    from mioc_tpu_torch.ops.bellman_cuda import dp_build_batched
+
+    adm = product_levels([list(range(6))] * 2)
+    stage, btilde, jump, smax = _batched_tables(adm, 2, 20, 12, torch.float64,
+                                                cuda_device)
+    with pytest.raises(ValueError, match="shared memory"):
+        dp_build_batched(stage, btilde, jump, 500, smax)
+    with pytest.raises(TypeError):
+        dp_build_batched(stage, btilde.long(), jump, 12, smax)
+    U, phi0 = dp_build_batched(stage, btilde, jump, 12, smax)
+    with pytest.raises(ValueError, match="at most|1 to 128"):
+        chase_trials(U, phi0, btilde, torch.zeros((2, 129), dtype=torch.int32,
+                                                  device=cuda_device))
+    strided = torch.zeros((2, 19, 36, 26), dtype=U.dtype, device=cuda_device)[..., :13]
+    with pytest.raises(ValueError, match="contiguous per start"):
+        chase_batched(strided, phi0, btilde, 3)
+
+
+def test_small_multistart_counts_launches(cuda_device):
+    from mioc_tpu_torch.models import LVMObj
+    from mioc_tpu_torch.ops.backtrack_cuda import chase, chase_batched, chase_trials
+    from mioc_tpu_torch.ops.bellman_cuda import dp_build, dp_build_batched
+    from mioc_tpu_torch.solvers.trm import TRMParameters
+    from mioc_tpu_torch.solvers.trm_device import multistart_solve_device, trm_solve_device
+    from mioc_tpu_torch.utils.init import rand_func
+
+    par = TRMParameters(beta=1e-4, delta0=2.0, p=np.inf)
+    obj = LVMObj(nt=128, device=cuda_device)
+    x0s = np.stack([rand_func(obj, seed=s) for s in range(3)])
+    kernels = (dp_build, chase, dp_build_batched, chase_batched, chase_trials)
+    n0 = [k.launches for k in kernels]
+    seq = multistart_solve_device(obj, par, x0s)
+    n1 = [k.launches for k in kernels]
+    spec = multistart_solve_device(obj, par, x0s, speculative=True)
+    n2 = [k.launches for k in kernels]
+    it = int(seq.iterations.max())
+    assert [b - a for a, b in zip(n0, n1)][:3] == [0, 0, it]
+    assert n1[3] - n0[3] >= it and n1[4] == n0[4]
+    assert [b - a for a, b in zip(n1, n2)] == [0, 0, it, 0, it]
+    for name in ("u", "x_final", "iterations", "inner_steps", "f_evals", "df_evals"):
+        np.testing.assert_array_equal(getattr(spec, name), getattr(seq, name))
+    one = trm_solve_device(LVMObj(nt=128, device=cuda_device), par, x0=x0s[1])
+    n3 = [k.launches for k in kernels]
+    assert n3[0] - n2[0] == int(one.iterations) and n3[3] - n2[3] == int(one.iterations)
+    np.testing.assert_array_equal(one.u, seq.u[1])
+    ref = multistart_solve_device(LVMObj(nt=128, device="cpu"), par, x0s)
+    np.testing.assert_array_equal(ref.u, seq.u)
+    np.testing.assert_array_equal(ref.inner_steps, seq.inner_steps)
+    np.testing.assert_allclose(ref.J, seq.J, rtol=1e-12)

@@ -1,0 +1,271 @@
+"""Port vs JAX package: the batched DP, the row-wise decision sums and the
+batched ODE sweeps (plain PyTorch versions on the CPU).
+
+* The plain batched build equals the TPU kernel ``build_tables_pallas_batched``
+  (interpret mode, float32) on the unpadded region, and ``jax.vmap`` of the
+  scan build at float64, bit for bit; start ``s`` equals the single build.
+* The plain batched chase equals ``_backtrack_batched_impl`` (interpret) at a
+  cap per start; the plain trial chase equals ``jax.vmap`` of
+  ``backtrack_pallas_trials`` (interpret); both equal the single chase.
+* ``stage_tables``, ``tv_rows``, ``iv_rows`` and the batched sweeps give
+  every row the bits of the single call, whatever the batch size.
+
+The CUDA kernels are held against these plain versions on the card by
+``chip_smoke.py`` and ``tests/test_torch_cuda.py``.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+from mioc_tpu.models import LVMObj as JaxLVM  # noqa: E402
+from mioc_tpu.ops import bellman as jb  # noqa: E402
+from mioc_tpu.ops.backtrack_pallas import (  # noqa: E402
+    _backtrack_batched_impl,
+    backtrack_pallas_trials,
+)
+from mioc_tpu.ops.bellman_pallas import build_tables_pallas_batched  # noqa: E402
+from mioc_tpu.ops.levels import (  # noqa: E402
+    bounded_sum_levels,
+    jump_cost_table,
+    product_levels,
+)
+from mioc_tpu.utils.init import rand_func  # noqa: E402
+from mioc_tpu_torch import interop  # noqa: E402
+from mioc_tpu_torch.models import LVMObj  # noqa: E402
+from mioc_tpu_torch.ops import bellman as tb  # noqa: E402
+from mioc_tpu_torch.ops.tv import fold_sum, iv_rows, tv_rows  # noqa: E402
+
+SETS = {
+    3: lambda: bounded_sum_levels([[0, 1]] * 3, 1, 1),
+    5: lambda: product_levels([[-2, -1, 0, 1, 2]]),
+    36: lambda: product_levels([list(range(6))] * 2),
+}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """Tiny tensor ops gain nothing from threads, and torch's thread pool
+    competes with the other test processes for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _instance(L, S, nt, seed, p=1, beta=0.05, tau=0.05):
+    """S starts' stage tables from seeded numpy gradients and admissible
+    u_old rows, computed by the JAX package; the shared jump table."""
+    s = SETS[L]()
+    rng = np.random.default_rng(seed)
+    grad = rng.normal(size=(S, nt, s.M))
+    u_old = s.levels[rng.integers(0, s.L, size=(S, nt))]
+    st, bt = jax.vmap(lambda g, u: jb.stage_tables(g, u, jnp.asarray(s.levels),
+                                                   tau))(grad, u_old)
+    jump = jump_cost_table(s.levels, p=p, beta=beta)
+    return s, np.asarray(st), np.asarray(bt), jump, jb.max_budget_use(s.levels)
+
+
+def _t(a, dtype=None):
+    return torch.as_tensor(np.array(a), dtype=dtype)
+
+
+@pytest.mark.parametrize("L,S,nt,B", [(3, 3, 60, 17), (5, 2, 40, 16), (36, 2, 12, 12)])
+def test_batched_build_bit_equal_vmap_scan_f64(L, S, nt, B):
+    s, st, bt, jump, smax = _instance(L, S, nt, seed=L + nt)
+    U_j, phi_j = jax.vmap(lambda a, b: jb.build_tables(a, b, jnp.asarray(jump), B,
+                                                       smax))(st, bt)
+    U_t, phi_t = tb.build_tables_batched(_t(st), _t(bt), _t(jump), B, smax)
+    assert U_t.shape == (S, nt - 1, L, B + 1) and U_t.dtype == tb.u_dtype(L)
+    np.testing.assert_array_equal(U_t.numpy(), np.asarray(U_j))
+    np.testing.assert_array_equal(phi_t.numpy(), np.asarray(phi_j))
+    for k in range(S):  # start k has the bits of the single build
+        U_1, phi_1 = tb.build_tables_plain(_t(st[k]), _t(bt[k]), _t(jump), B, smax)
+        assert torch.equal(U_t[k], U_1) and torch.equal(phi_t[k], phi_1)
+
+
+@pytest.mark.parametrize("L,S,nt,B", [(3, 3, 70, 17), (36, 2, 12, 12)])
+def test_batched_build_bit_equal_pallas_f32(L, S, nt, B):
+    s, st, bt, jump, smax = _instance(L, S, nt, seed=3 * L, p=2)
+    U_p, phi_p = build_tables_pallas_batched(jnp.asarray(st, jnp.float32), bt,
+                                             jnp.asarray(jump, jnp.float32), B,
+                                             smax, interpret=True, raw_u=True)
+    U_c, phi_c = interop.tables_from_pallas(U_p, phi_p, nt=nt, L=L, B=B, device="cpu")
+    U_t, phi_t = tb.build_tables_batched(_t(st, torch.float32), _t(bt),
+                                         _t(jump, torch.float32), B, smax)
+    assert U_c.shape == U_t.shape and phi_c.shape == phi_t.shape
+    assert torch.equal(U_t, U_c) and torch.equal(phi_t, phi_c)
+
+
+def _pallas_tables(L, S, nt, B, seed):
+    s, st, bt, jump, smax = _instance(L, S, nt, seed=seed, p=np.inf, beta=1e-3)
+    U_p, phi_p = build_tables_pallas_batched(jnp.asarray(st, jnp.float32), bt,
+                                             jnp.asarray(jump, jnp.float32), B,
+                                             smax, interpret=True)
+    U_t, phi_t = interop.tables_from_pallas(U_p, phi_p, nt=nt, L=L, B=B, device="cpu")
+    return s, bt, U_p, phi_p, U_t, phi_t
+
+
+@pytest.mark.parametrize("L,S,nt,B", [(3, 4, 140, 23), (36, 3, 12, 12)])
+def test_batched_chase_equals_pallas_and_single(L, S, nt, B):
+    s, bt, U_p, phi_p, U_t, phi_t = _pallas_tables(L, S, nt, B, seed=L + 1)
+    caps = np.array([B, B // 2, 0, 1][:S], np.int32)
+    levels = jnp.asarray(s.levels)
+    _, i_p = _backtrack_batched_impl(U_p, phi_p, bt, levels, jnp.asarray(caps),
+                                     interpret=True)
+    u_t, i_t = tb.backtrack_batched(U_t, phi_t, _t(bt), s.levels, _t(caps))
+    assert i_t.dtype == torch.int32 and u_t.shape == (S, nt, s.M)
+    np.testing.assert_array_equal(i_t.numpy(), np.asarray(i_p))
+    for k in range(S):
+        i_1 = tb.backtrack_plain(U_t[k], phi_t[k], _t(bt[k]), int(caps[k]))
+        assert torch.equal(i_t[k], i_1)
+    # A cap past B masks nothing (the Pallas tables' padded budget lanes hold
+    # values past B, so this is held against the compact-table chase only).
+    _, i_big = tb.backtrack_batched(U_t, phi_t, _t(bt), s.levels, B + 3)
+    assert torch.equal(i_big, tb.backtrack_batched(U_t, phi_t, _t(bt), s.levels, B)[1])
+    # A shared cap, and tables expanded along the start axis (stride 0).
+    _, i_s = tb.backtrack_batched(U_t[:1].expand(S, -1, -1, -1), phi_t[:1].expand(
+        S, -1, -1), _t(bt[:1]).expand(S, -1, -1), s.levels, _t(caps))
+    for k in range(S):
+        assert torch.equal(i_s[k], tb.backtrack_plain(U_t[0], phi_t[0], _t(bt[0]),
+                                                      int(caps[k])))
+
+
+@pytest.mark.parametrize("L,S,nt,B", [(3, 3, 140, 23), (36, 2, 12, 12)])
+def test_trial_chase_equals_pallas_and_single(L, S, nt, B):
+    s, bt, U_p, phi_p, U_t, phi_t = _pallas_tables(L, S, nt, B, seed=2 * L)
+    trials = np.array([[B, B // 2, B // 4, 1, 0]] * S, np.int32)
+    trials[-1] = trials[-1][::-1]
+    levels = jnp.asarray(s.levels)
+    _, i_p = jax.vmap(lambda U, p, b, c: backtrack_pallas_trials(
+        U, p, b, levels, c, interpret=True))(U_p, phi_p, jnp.asarray(bt), trials)
+    u_t, i_t = tb.backtrack_trials(U_t, phi_t, _t(bt), s.levels, _t(trials))
+    assert i_t.shape == (S, trials.shape[1], nt) and u_t.shape == (*i_t.shape, s.M)
+    np.testing.assert_array_equal(i_t.numpy(), np.asarray(i_p))
+    # A cap past B masks nothing (held against the compact-table chase).
+    trials = np.concatenate([trials, np.full((S, 1), B + 9, np.int32)], axis=1)
+    _, i_t = tb.backtrack_trials(U_t, phi_t, _t(bt), s.levels, _t(trials))
+    assert torch.equal(i_t[:, -1], tb.backtrack_batched(U_t, phi_t, _t(bt), s.levels,
+                                                        B)[1])
+    for k in range(S):
+        for t, cap in enumerate(trials[k]):
+            assert torch.equal(i_t[k, t], tb.backtrack_plain(U_t[k], phi_t[k],
+                                                             _t(bt[k]), int(cap)))
+
+
+def test_plain_batched_forms_count_calls():
+    s, st, bt, jump, smax = _instance(3, 2, 10, seed=0)
+    n = (tb.build_tables_batched_plain.calls, tb.backtrack_batched_plain.calls,
+         tb.backtrack_trials_plain.calls)
+    U, phi = tb.build_tables_batched(_t(st), _t(bt), _t(jump), 4, smax)
+    tb.backtrack_batched(U, phi, _t(bt), s.levels, 4)
+    tb.backtrack_trials(U, phi, _t(bt), s.levels, _t([[4, 0], [1, 2]]))
+    assert (tb.build_tables_batched_plain.calls, tb.backtrack_batched_plain.calls,
+            tb.backtrack_trials_plain.calls) == (n[0] + 1, n[1] + 1, n[2] + 1)
+
+
+def test_batched_wrappers_refuse_non_cuda_tensors():
+    st = torch.zeros((2, 4, 3), device="meta", dtype=torch.float64)
+    bt = torch.zeros((2, 4, 3), device="meta", dtype=torch.int32)
+    U = torch.zeros((2, 3, 3, 3), device="meta", dtype=torch.int8)
+    phi = torch.zeros((2, 3, 3), device="meta", dtype=torch.float64)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tb.build_tables_batched(st, bt, torch.zeros((3, 3), device="meta",
+                                                    dtype=torch.float64), 2, 2)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tb.backtrack_batched(U, phi, bt, np.eye(3), 2)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tb.backtrack_trials(U, phi, bt, np.eye(3), [[2], [1]])
+
+
+def test_interop_takes_batched_tables():
+    U = np.arange(2 * 5 * 8 * 128).reshape(2, 5, 8, 128).astype(np.int32)
+    phi = np.ones((2, 8, 128), np.float32)
+    U_t, phi_t = interop.tables_from_pallas(U, phi, nt=4, L=3, B=6, device="cpu")
+    assert U_t.shape == (2, 3, 3, 7) and phi_t.shape == (2, 3, 7)
+    np.testing.assert_array_equal(U_t.numpy(), U[:, :3, :3, :7])
+    with pytest.raises(ValueError):
+        interop.tables_from_pallas(U, phi[0], nt=4, L=3, B=6, device="cpu")
+
+
+# ---------------------------------------------- per-row bits, any batch size
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("L", [3, 36])
+def test_stage_tables_rows_bit_equal_single(L, dtype):
+    s = SETS[L]()
+    rng = np.random.default_rng(L)
+    grad = _t(rng.normal(size=(4, 30, s.M)), dtype)
+    u_old = _t(s.levels[rng.integers(0, s.L, size=(4, 30))], dtype)
+    st, bt = tb.stage_tables(grad, u_old, s.levels, 0.05)
+    for k in range(4):
+        st1, bt1 = tb.stage_tables(grad[k], u_old[k], s.levels, 0.05)
+        assert torch.equal(st[k], st1) and torch.equal(bt[k], bt1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("p", [1, 2, np.inf])
+def test_tv_iv_rows_bit_equal_for_any_batch(p, dtype):
+    s = SETS[3]()
+    rng = np.random.default_rng(5)
+    nt = 97
+    us = _t(s.levels[rng.integers(0, s.L, size=(36, nt))], dtype)
+    grad = _t(rng.normal(size=(nt, s.M)), dtype)
+    u_old = us[0]
+    one = [tv_rows(us[k:k + 1], p)[0] for k in range(36)]
+    iv_one = [iv_rows(grad, u_old, us[k:k + 1])[0] for k in range(36)]
+    for K in (1, 2, 9, 36):
+        tv = tv_rows(us[:K], p)
+        iv = iv_rows(grad, u_old, us[:K])
+        assert tv.shape == iv.shape == (K,)
+        for k in range(K):
+            assert torch.equal(tv[k], one[k]) and torch.equal(iv[k], iv_one[k])
+    # Against the JAX package's row-wise TV, to rounding.
+    from mioc_tpu.ops.tv import _tv_rows
+
+    np.testing.assert_allclose(tv_rows(us[:9], p).double().numpy(),
+                               np.asarray(_tv_rows(jnp.asarray(us[:9].numpy()),
+                                                   float(p))), rtol=1e-6)
+    # A start axis in front: (S, K, nt, M) rows.
+    both = iv_rows(torch.stack([grad, grad]), torch.stack([u_old, u_old]),
+                   torch.stack([us[:9], us[9:18]]))
+    assert torch.equal(both[1, 3], iv_one[12])
+
+
+def test_fold_sum_is_a_sum():
+    x = torch.arange(1.0, 101.0, dtype=torch.float64).reshape(4, 25)
+    np.testing.assert_array_equal(fold_sum(x).numpy(), x.sum(1).numpy())
+    assert fold_sum(torch.zeros(3, 0)).shape == (3,)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_batched_sweeps_rows_bit_equal_single(dtype):
+    nt = 120
+    obj = LVMObj(nt=nt, device="cpu", dtype=dtype)
+    xs = _t(np.stack([rand_func(JaxLVM(nt=nt), seed=s) for s in range(5)]), dtype)
+    f, ys = obj._forward_batch(xs)
+    assert f.shape == (5,) and ys.shape == (nt, 5, 2)
+    df, lam = obj._adjoint_batch(xs, ys)
+    assert df.shape == (5, nt, 3) and lam.shape == (5, nt, 2)
+    for k in range(5):
+        f1, ys1 = obj._forward(xs[k])
+        df1, lam1 = obj._adjoint(xs[k], ys1)
+        assert torch.equal(f[k], f1) and torch.equal(ys[:, k], ys1)
+        assert torch.equal(df[k], df1) and torch.equal(lam[k], lam1)
+    f3, _ = obj._forward_batch_with(xs[:3])
+    assert torch.equal(f3, f[:3])
+
+
+def test_batched_forward_matches_jax():
+    nt = 150
+    xs = np.stack([rand_func(JaxLVM(nt=nt), seed=s) for s in range(4)])
+    jobj = JaxLVM(nt=nt)
+    f_j, ys_j = jobj._forward_batch_with(jnp.asarray(xs), None)
+    f_t, ys_t = LVMObj(nt=nt, device="cpu")._forward_batch_with(_t(xs))
+    assert ys_t.shape == np.asarray(ys_j).shape == (nt, 4, 2)
+    np.testing.assert_allclose(f_t.numpy(), np.asarray(f_j), rtol=1e-12)
+    np.testing.assert_allclose(ys_t.numpy(), np.asarray(ys_j), rtol=1e-12)

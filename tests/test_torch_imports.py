@@ -43,8 +43,19 @@ def test_no_jax_or_reference_imports(path):
 def test_port_modules_found():
     names = {p.relative_to(PORT).as_posix() for p in FILES if PORT in p.parents}
     assert {"ops/bellman.py", "ops/bellman_cuda.py", "ops/backtrack_cuda.py",
-            "solvers/trm.py", "interop.py"} <= names
+            "solvers/trm.py", "solvers/trm_device.py", "parallel/__init__.py",
+            "parallel/batch.py", "interop.py"} <= names
     assert (ROOT / "chip_smoke.py").exists()
+
+
+def test_every_kernel_has_its_source():
+    """Each kernel library the port builds has its CUDA source in csrc/, and
+    every source there is built."""
+    from mioc_tpu_torch.ops import _kernels
+
+    assert set(_kernels.SOURCES) == {p.stem for p in (PORT / "csrc").glob("*.cu")}
+    assert {"dp_build", "chase", "dp_build_batched", "chase_batched",
+            "chase_trials"} <= set(_kernels.SOURCES)
 
 
 def test_importing_the_port_loads_no_jax():

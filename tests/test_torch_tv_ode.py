@@ -119,6 +119,9 @@ class _AutodiffLVM(LVMObj):
     step_terms = ODEObjective.step_terms
     F_step = ODEObjective.F_step
     FyT_lam_step = ODEObjective.FyT_lam_step
+    G_rows = ODEObjective.G_rows
+    Gy_rows = ODEObjective.Gy_rows
+    df_rows = ODEObjective.df_rows
 
 
 def test_autodiff_defaults_match_hand_written():
