@@ -6,13 +6,14 @@
 Run from the root of a checkout.  It builds the CUDA kernels from
 ``mioc_tpu_torch/csrc`` (one ``nvcc`` per source, all at once), then:
 
-1. holds the single-start kernels (``dp_build``, ``chase``) against their
-   plain PyTorch versions on the card at three DP shapes (fishing nt=1024
-   L=3 B=170; conv nt=2048 L=5 B=128; heat-scale nt=1024 L=36 B=204), in
-   float32 and float64, with inputs from a seeded numpy generator.  The
-   tables U and phi0 must be BIT-equal and the chased level indices equal
-   for B_new ∈ {B, B//2, B//4, 0}.  Times are CUDA-event medians, taken in
-   turns (plain, kernel, kernel, plain);
+1. holds the single-start kernels (``dp_build``, ``chase``, ``chase_vec``)
+   against their plain PyTorch versions on the card at three DP shapes
+   (fishing nt=1024 L=3 B=170; conv nt=2048 L=5 B=128; heat-scale nt=1024
+   L=36 B=204), in float32 and float64, with inputs from a seeded numpy
+   generator.  The tables U and phi0 must be BIT-equal and the chased level
+   indices of both chases equal for B_new ∈ {B, B//2, B//4, 0}.  Times are
+   CUDA-event medians, taken in turns (plain, kernel, kernel, plain), and
+   ``chase_vec`` in turns with ``chase`` too;
 2. holds the batched kernels (``dp_build_batched``, ``chase_batched``,
    ``chase_trials``) against their plain versions the same way, at fishing
    (S=32 starts) and heat scale (S=8), float32 and float64: tables bit-equal,
@@ -39,7 +40,27 @@ Run from the root of a checkout.  It builds the CUDA kernels from
       ``dp_build_batched`` and ``chase_trials``.
    No path may call a plain DP version on the card;
 4. times the batched sweeps (ms per batched f and ∇f at the batch sizes the
-   paths use).
+   paths use);
+5. holds the rows of ``ConvObj(nt=2048)``'s batched f and ∇f (1, 9 and 32
+   rows) bit-equal to single evaluations, and reports whether one raw
+   ``torch.matmul`` would have given each row the same bits (it is why the
+   objective evaluates in fixed-shape chunks);
+6. runs the CLI as a user does, ``mioc_tpu_torch.cli.main`` in this process
+   with stdout captured and its JSON line parsed, each run with the launch
+   counts set to 0 just before and read just after:
+   a. ``convolution --n 2048 --seed 0 --no-plot --no-log``: the JAX
+      package's iterations, f and ∇f evaluations and J (rtol 1e-12; the
+      constants ``CLI_REFS`` below), through one ``dp_build`` per iteration
+      and one ``chase`` per inner step (1696), no ``chase_vec``;
+   b. the same under ``MIOC_CHASE=vec``: equal fields and accepted u (read
+      from ``--checkpoint``), through 1696 ``chase_vec`` and no ``chase``;
+   c. the same with ``--device-loop`` (speculative wave): the JAX package's
+      device-loop constants, through one ``dp_build`` and one
+      ``chase_batched`` per iteration;
+   d. ``doubletank``, ``vanderpol`` and ``fuller`` at ``--n 1024 --seed
+      0``: the JAX package's constants;
+   and prints where the time of (a) and (b) goes, the chases against the
+   rest, with the A/B of the two chases.
 
 Each finding is printed as one JSON object per line; the ``kernels`` line
 comes next to last and the last line is
@@ -101,6 +122,19 @@ REF32_J = (0.9304798828368771, 0.9356193732626554, 0.933153304738131,
            0.9368280889757825, 0.9342508091655368)
 N_STARTS = 32
 PRESET = dict(beta=1e-4, delta0=2.0, p=math.inf)
+
+# The JAX package's CLI on the CPU at float64, one line per run below (the
+# printed JSON's J, iterations, f_evals and df_evals); each from
+#   JAX_PLATFORMS=cpu JAX_ENABLE_X64=1 python -m mioc_tpu.cli <args> --seed 0 --no-plot --no-log
+# The host loop's inner steps are f_evals − 1 (no kmax restore in these
+# solves), which is the count of single chases.
+CLI_REFS = {
+    "convolution --n 2048": (0.004834434453146139, 287, 1697, 288),
+    "convolution --n 2048 --device-loop": (0.00483443445314614, 287, 1697, 287),
+    "doubletank --n 1024": (4.739496951260922, 11, 42, 12),
+    "vanderpol --n 1024": (2.41124024148147, 31, 57, 32),
+    "fuller --n 1024": (0.000777635513012828, 32, 183, 33),
+}
 
 SHAPES = (
     # name, nt, B, level set, (p, beta, tau) — the bundled problems' presets
@@ -164,7 +198,7 @@ def bits(t, torch):
 
 def kernel_phase(torch, name, nt, B, level_spec, preset, dtype, seed):
     from mioc_tpu_torch.ops import levels as lv
-    from mioc_tpu_torch.ops.backtrack_cuda import chase
+    from mioc_tpu_torch.ops.backtrack_cuda import chase, chase_vec, vec_chunk
     from mioc_tpu_torch.ops.bellman import (backtrack_plain, build_tables_plain,
                                             max_budget_use, stage_tables)
     from mioc_tpu_torch.ops.bellman_cuda import dp_build
@@ -195,12 +229,17 @@ def kernel_phase(torch, name, nt, B, level_spec, preset, dtype, seed):
     phi_err = float((phi_k[finite] - phi_p[finite]).abs().max()) if finite.any() else 0.0
     budgets = sorted({B, B // 2, B // 4, 0}, reverse=True)
     idx_err = 0
+    vec_err = 0
     for bn in budgets:
         i_k = chase(U_k, phi_k, btilde, bn)
+        i_v = chase_vec(U_k, phi_k, btilde, bn)
         i_p = backtrack_plain(U_k, phi_k, btilde, bn)
         require(i_k.shape == (nt,) and i_k.dtype == torch.int32, f"{name} idx layout")
+        require(i_v.shape == (nt,) and i_v.dtype == torch.int32, f"{name} vec idx layout")
         idx_err = max(idx_err, int((i_k.long() - i_p.long()).abs().max()))
+        vec_err = max(vec_err, int((i_v.long() - i_p.long()).abs().max()))
         require(idx_err == 0, f"{name} {dtype}: chase equal at B_new={bn}")
+        require(vec_err == 0, f"{name} {dtype}: chase_vec equal at B_new={bn}")
 
     dt_name = "float64" if dtype == torch.float64 else "float32"
     ds, us = phi_k.element_size(), U_k.element_size()
@@ -224,6 +263,14 @@ def kernel_phase(torch, name, nt, B, level_spec, preset, dtype, seed):
     c_ms, c_plain = in_turns(
         torch, lambda: backtrack_plain(U_k, phi_k, btilde, B),
         lambda: chase(U_k, phi_k, btilde, B), 3, 10)
+    v_ms, v_plain = in_turns(
+        torch, lambda: backtrack_plain(U_k, phi_k, btilde, B),
+        lambda: chase_vec(U_k, phi_k, btilde, B), 3, 10)
+    # The A/B of the two chases, in turns within one call: chase, chase_vec,
+    # chase_vec, chase.
+    ab_vec, ab_chase = in_turns(
+        torch, lambda: chase(U_k, phi_k, btilde, B),
+        lambda: chase_vec(U_k, phi_k, btilde, B), 10, 10)
     bb_ms, bb_by = bound(build_bytes, build_ops, dt_name)
     cb_ms, cb_by = bound(chase_bytes, chase_ops, dt_name)
     out = {
@@ -235,6 +282,12 @@ def kernel_phase(torch, name, nt, B, level_spec, preset, dtype, seed):
         "chase": {"equal_at": budgets, "max_abs_err": idx_err, "kernel_ms": c_ms,
                   "plain_ms": c_plain, "bound_ms": cb_ms, "bound_by": cb_by,
                   "ops": chase_ops, "bytes": chase_bytes},
+        # The same function as chase, so the same bound.
+        "chase_vec": {"equal_at": budgets, "max_abs_err": vec_err, "kernel_ms": v_ms,
+                      "plain_ms": v_plain, "bound_ms": cb_ms, "bound_by": cb_by,
+                      "chunk": vec_chunk(nt, L, B, us),
+                      "in_turns_with_chase": {"chase_vec_ms": ab_vec,
+                                              "chase_ms": ab_chase}},
     }
     emit(out)
     return out
@@ -345,11 +398,13 @@ def zero_counts(torch):
     """Set every kernel's launch count and every plain version's call count
     to 0; returns a reader of both."""
     from mioc_tpu_torch.ops import bellman as tb
-    from mioc_tpu_torch.ops.backtrack_cuda import chase, chase_batched, chase_trials
+    from mioc_tpu_torch.ops.backtrack_cuda import (chase, chase_batched, chase_trials,
+                                                   chase_vec)
     from mioc_tpu_torch.ops.bellman_cuda import dp_build, dp_build_batched
 
     kernels = {"dp_build": dp_build, "chase": chase, "dp_build_batched": dp_build_batched,
-               "chase_batched": chase_batched, "chase_trials": chase_trials}
+               "chase_batched": chase_batched, "chase_trials": chase_trials,
+               "chase_vec": chase_vec}
     plains = {n: getattr(tb, n) for n in (
         "build_tables_plain", "backtrack_plain", "build_tables_batched_plain",
         "backtrack_batched_plain", "backtrack_trials_plain")}
@@ -520,6 +575,132 @@ def sweep_times(torch, x0s) -> dict:
     return out
 
 
+def conv_rows(torch) -> dict:
+    """ConvObj(nt=2048) on the card: rows of 1-, 9- and 32-row batched f and
+    ∇f bit-equal to single evaluations (the speculative wave decides on
+    them).  Also whether one raw ``torch.matmul`` gives each row the same
+    bits at 1, 9 and 32 rows — the reason the objective evaluates in
+    fixed-shape chunks — and ms per batched f and ∇f (CUDA events)."""
+    from mioc_tpu_torch.models import ConvObj
+    from mioc_tpu_torch.models.convolution import ROWS
+    from mioc_tpu_torch.utils.init import rand_func
+
+    obj = ConvObj(nt=2048)
+    X = torch.as_tensor(np.stack([rand_func(obj, seed=s) for s in range(32)]),
+                        dtype=obj.dtype, device=obj.device)
+    f1 = torch.stack([obj._forward_batch(X[s:s + 1])[0][0] for s in range(32)])
+    d1 = torch.stack([obj._adjoint_batch(X[s:s + 1], None)[0][0] for s in range(32)])
+    raw1 = torch.stack([(X[s:s + 1, :, 0] @ obj._KT)[0] for s in range(32)])
+    out = {"phase": "conv_rows", "nt": 2048, "dtype": "float64", "chunk_rows": ROWS,
+           "f_rows_bit_equal": {}, "df_rows_bit_equal": {},
+           "raw_matmul_rows_bit_equal": {}, "f_ms": {}, "df_ms": {}}
+    for S in (1, 9, 32):
+        f = obj._forward_batch(X[:S])[0]
+        d = obj._adjoint_batch(X[:S], None)[0]
+        raw = X[:S, :, 0] @ obj._KT
+        out["f_rows_bit_equal"][S] = torch.equal(bits(f, torch), bits(f1[:S], torch))
+        out["df_rows_bit_equal"][S] = torch.equal(bits(d, torch), bits(d1[:S], torch))
+        out["raw_matmul_rows_bit_equal"][S] = torch.equal(bits(raw, torch),
+                                                          bits(raw1[:S], torch))
+        out["f_ms"][S] = statistics.median(
+            median_ms(torch, lambda: obj._forward_batch(X[:S]), 10))
+        out["df_ms"][S] = statistics.median(
+            median_ms(torch, lambda: obj._adjoint_batch(X[:S], None), 10))
+    emit(out)
+    for S in (1, 9, 32):
+        require(out["f_rows_bit_equal"][S], f"conv f rows of a {S}-row batch bit-equal")
+        require(out["df_rows_bit_equal"][S], f"conv ∇f rows of a {S}-row batch bit-equal")
+    return out
+
+
+def run_cli(torch, name, args, chase_variant=None) -> dict:
+    """``mioc_tpu_torch.cli.main(args)`` as a user runs it, in this process
+    with stdout captured, launch counts zeroed before and read after;
+    ``chase_variant`` sets ``MIOC_CHASE`` for the run.  Returns the parsed
+    JSON line with the launches and the wall time added."""
+    import contextlib
+    import io
+
+    from mioc_tpu_torch import cli
+
+    old = os.environ.get("MIOC_CHASE")
+    if chase_variant is not None:
+        os.environ["MIOC_CHASE"] = chase_variant
+    buf = io.StringIO()
+    read = zero_counts(torch)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(args)
+        launches, plain_calls = read()
+    finally:
+        if old is None:
+            os.environ.pop("MIOC_CHASE", None)
+        else:
+            os.environ["MIOC_CHASE"] = old
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+    require(rc == 0 and lines, f"{name}: the CLI returned {rc} and printed its JSON line")
+    res = json.loads(lines[-1])
+    res.update(phase="cli", path=name, argv=args, chase=chase_variant or "scalar",
+               launches=launches, plain_calls_on_card=plain_calls, wall_s_measured=wall)
+    emit(res)
+    require(not any(plain_calls.values()), f"{name}: no plain DP on the card")
+    return res
+
+
+def check_cli(res, ref_key) -> None:
+    J, its, f_evals, df_evals = CLI_REFS[ref_key]
+    name = res["path"]
+    require(res["converged"], f"{name}: converged")
+    require((res["iterations"], res["f_evals"], res["df_evals"]) == (its, f_evals, df_evals),
+            f"{name}: iterations/f_evals/df_evals {res['iterations']}/{res['f_evals']}/"
+            f"{res['df_evals']} == JAX {its}/{f_evals}/{df_evals}")
+    require(abs(res["J"] - J) <= 1e-12 * abs(J), f"{name}: J {res['J']!r} == JAX {J!r}")
+
+
+def cli_paths(torch, tmp) -> dict:
+    """The CLI runs (a)–(d) of the docstring; returns their results."""
+    base = ["--seed", "0", "--no-plot", "--no-log"]
+    conv = ["convolution", "--n", "2048"] + base
+    out = {}
+    for key, variant, kernel, other in (("conv_scalar", None, "chase", "chase_vec"),
+                                        ("conv_vec", "vec", "chase_vec", "chase")):
+        ck = os.path.join(tmp, f"{key}.npz")
+        r = run_cli(torch, key, conv + ["--checkpoint", ck], chase_variant=variant)
+        check_cli(r, "convolution --n 2048")
+        n = r["launches"]
+        require(n["dp_build"] == r["iterations"] and n[kernel] == r["f_evals"] - 1
+                and n[other] == 0,
+                f"{key}: {r['iterations']} dp_build and {r['f_evals'] - 1} {kernel} "
+                f"launches, none of {other}: {n}")
+        with np.load(ck) as z:
+            r["u"] = z["u"]
+        out[key] = r
+    require(np.array_equal(out["conv_scalar"]["u"], out["conv_vec"]["u"]),
+            "conv: the accepted u is the same with either chase")
+    for field in ("J", "iterations", "f_evals", "df_evals", "converged"):
+        require(out["conv_scalar"][field] == out["conv_vec"][field],
+                f"conv: {field} is the same with either chase")
+    r = run_cli(torch, "conv_device", conv + ["--device-loop"])
+    check_cli(r, "convolution --n 2048 --device-loop")
+    n = r["launches"]
+    require(n["dp_build"] == n["chase_batched"] == r["iterations"] and n["chase"] == 0
+            and n["chase_vec"] == 0,
+            f"conv_device: one dp_build and one chase_batched per iteration: {n}")
+    out["conv_device"] = r
+    for problem in ("doubletank", "vanderpol", "fuller"):
+        r = run_cli(torch, problem, [problem, "--n", "1024"] + base)
+        check_cli(r, f"{problem} --n 1024")
+        n = r["launches"]
+        require(n["dp_build"] == r["iterations"] and n["chase"] == r["f_evals"] - 1,
+                f"{problem}: launches {n}")
+        out[problem] = r
+    for r in out.values():
+        r.pop("u", None)
+    return out
+
+
 def check_multistarts(seq, spec, single):
     for s in range(N_STARTS):
         require(int(seq.iterations[s]) == REF32_ITERATIONS[s]
@@ -591,6 +772,11 @@ def main() -> int:
     spec, spec_launches, spec_wall, spec_sweeps = multistart_path(torch, x0s, True)
     check_multistarts(seq, spec, single)
     sweeps = sweep_times(torch, x0s)
+    conv = conv_rows(torch)
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = cli_paths(torch, tmp)
 
     # Where the time of each path goes: the sweeps (batches × measured ms per
     # batch), the kernels (launches × measured kernel ms), and the rest
@@ -599,6 +785,7 @@ def main() -> int:
     batched64 = phases[("batched", "fishing", torch.float64)]
     kernel_ms = {"dp_build": fishing64["dp_build"]["kernel_ms"],
                  "chase": fishing64["chase"]["kernel_ms"],
+                 "chase_vec": fishing64["chase_vec"]["kernel_ms"],
                  **{k: batched64[k]["kernel_ms"] for k in (
                      "dp_build_batched", "chase_batched", "chase_trials")}}
     paths = {"device_single": (single_wall, single_launches, single_sweeps),
@@ -612,6 +799,27 @@ def main() -> int:
               "sweeps_s_estimate": sweep_s, "kernels_s_estimate": k_s,
               "rest_s": wall - sweep_s - k_s, "sweep_counts": counts})
 
+    # The conv CLI solves with each chase: the chases (launches × the conv
+    # shape's kernel ms) against the rest of the wall (sweeps, builds,
+    # stage tables, host reads and Python).
+    conv64 = phases[("conv", torch.float64)]
+    for key in ("conv_scalar", "conv_vec"):
+        r = cli[key]
+        kernel = "chase_vec" if key == "conv_vec" else "chase"
+        chase_s = r["launches"][kernel] * conv64[kernel]["kernel_ms"] / 1e3
+        build_s = r["launches"]["dp_build"] * conv64["dp_build"]["kernel_ms"] / 1e3
+        emit({"phase": "where_the_time_goes", "path": f"cli_{key}",
+              "wall_s": r["wall_s_measured"], "chase_kernel": kernel,
+              "chases_s_estimate": chase_s, "builds_s_estimate": build_s,
+              "chase_share": chase_s / r["wall_s_measured"],
+              "rest_s": r["wall_s_measured"] - chase_s - build_s,
+              "timings_s": r["timings"],
+              "f_ms_per_batch": conv["f_ms"][1], "df_ms_per_batch": conv["df_ms"][1]})
+    emit({"phase": "chase_ab", "path": "cli conv nt=2048 host loop",
+          "wall_s": {"chase": cli["conv_scalar"]["wall_s_measured"],
+                     "chase_vec": cli["conv_vec"]["wall_s_measured"]},
+          "kernel_ms_in_turns": conv64["chase_vec"]["in_turns_with_chase"]})
+
     rows = []
     for key, src, tpu, launches, path, m in (
             ("dp_build", "dp_build.cu", "mioc_tpu/ops/bellman_pallas.py:123",
@@ -624,10 +832,13 @@ def main() -> int:
             ("chase_batched", "chase_batched.cu", "mioc_tpu/ops/backtrack_pallas.py:283",
              seq_launches, "multistart_sequential", batched64["chase_batched"]),
             ("chase_trials", "chase_trials.cu", "mioc_tpu/ops/backtrack_pallas.py:415",
-             spec_launches, "multistart_speculative", batched64["chase_trials"])):
+             spec_launches, "multistart_speculative", batched64["chase_trials"]),
+            ("chase_vec", "chase_vec.cu", "mioc_tpu/ops/backtrack_pallas.py:176",
+             cli["conv_vec"]["launches"], "cli_conv_vec", conv64["chase_vec"])):
         require(launches[key] > 0, f"{key} launched on its path {path}")
         rows.append({"name": key, "route": "cuda", "source": f"mioc_tpu_torch/csrc/{src}",
                      "replaces": tpu, "launches": launches[key], "path": path,
+                     "shape": "conv f64" if key == "chase_vec" else "fishing f64",
                      "max_abs_err": m["max_abs_err"], "ms": m["kernel_ms"],
                      "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                      "bound_by": m["bound_by"], "library_ms": None})

@@ -14,16 +14,31 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
-from .models.fishing import LVMObj
+from .models import ConvObj, DTMObj, FullerObj, LVMObj, VPOObj
 from .ops.levels import AdmissibleSet
 
-__all__ = ["LVM_PARAMS", "admissible_from_arrays", "lvm_from_params",
-           "tables_from_pallas"]
+__all__ = ["LVM_PARAMS", "PROBLEM_PARAMS", "CONV_OPERATORS", "admissible_from_arrays",
+           "lvm_from_params", "objective_from_params", "tables_from_pallas"]
 
 # The numeric parameters that define a fishing problem (attributes of
 # ``mioc_tpu.models.LVMObj``).
 LVM_PARAMS = ("alpha", "beta", "gamma", "delta", "c1", "c2", "v1", "v2",
               "state0", "nt", "T0", "T1")
+
+# The numeric parameters of each problem, by registry name (attributes of the
+# JAX package's objective of that name).
+PROBLEM_PARAMS = {
+    "fishing": LVM_PARAMS,
+    "doubletank": ("nt", "k1", "k2", "c", "state0"),
+    "vanderpol": ("nt", "c", "state0"),
+    "fuller": ("nt", "state0", "terminal_weight", "terminal_frac"),
+    "convolution": ("nt", "omega0"),
+}
+
+# The operators of a convolution problem (attributes of
+# ``mioc_tpu.models.ConvObj``); :func:`objective_from_params` installs them
+# when given, in place of the port's own build.
+CONV_OPERATORS = ("K", "fvec", "_Mdiag", "_Moff")
 
 
 def admissible_from_arrays(V, indices, levels) -> AdmissibleSet:
@@ -75,3 +90,35 @@ def tables_from_pallas(U, phi0, *, nt: int, L: int, B: int, device=None):
     U_t = torch.from_numpy(np.ascontiguousarray(U[..., : nt - 1, :L, : B + 1])).to(dev)
     phi_t = torch.from_numpy(np.ascontiguousarray(phi0[..., :L, : B + 1])).to(dev)
     return U_t, phi_t
+
+
+def objective_from_params(name: str, params: Mapping, *, device=None, dtype=None):
+    """The port's objective of problem ``name`` (a key of
+    :data:`PROBLEM_PARAMS`) with the numeric parameters ``params`` (numbers
+    or numpy arrays).  For ``"convolution"``, any of :data:`CONV_OPERATORS`
+    in ``params`` replace the port's own operators (all four, or none)."""
+    if name not in PROBLEM_PARAMS:
+        raise KeyError(f"no parameter set for problem {name!r}; "
+                       f"known: {sorted(PROBLEM_PARAMS)}")
+    if name == "fishing":
+        return lvm_from_params(params, device=device, dtype=dtype)
+    missing = [k for k in PROBLEM_PARAMS[name] if k not in params]
+    if missing:
+        raise KeyError(f"missing {name} parameters: {missing}")
+    p = {k: np.asarray(params[k]) for k in PROBLEM_PARAMS[name]}
+    nt, kw = int(p["nt"]), dict(device=device, dtype=dtype)
+    if name == "doubletank":
+        return DTMObj(nt, k1=float(p["k1"]), k2=float(p["k2"]), c=p["c"],
+                      state0=p["state0"], **kw)
+    if name == "vanderpol":
+        return VPOObj(nt, c=p["c"], state0=p["state0"], **kw)
+    if name == "fuller":
+        return FullerObj(nt, state0=p["state0"], terminal_weight=float(p["terminal_weight"]),
+                         terminal_frac=float(p["terminal_frac"]), **kw)
+    obj = ConvObj(nt, omega0=float(p["omega0"]), **kw)
+    given = [k for k in CONV_OPERATORS if k in params]
+    if given:
+        if len(given) != len(CONV_OPERATORS):
+            raise KeyError(f"give all of {CONV_OPERATORS} or none, got {given}")
+        obj.set_operators(*(np.asarray(params[k]) for k in CONV_OPERATORS))
+    return obj

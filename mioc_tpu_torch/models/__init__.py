@@ -1,5 +1,10 @@
-"""Bundled problems (this slice: Lotka–Volterra fishing)."""
+"""Bundled problems: Lotka–Volterra fishing, double tank, Van der Pol,
+Fuller and convolution.  :mod:`.registry` names them, with their presets."""
 
+from .convolution import ConvObj
+from .doubletank import DTMObj
 from .fishing import LVMObj
+from .fuller import FullerObj
+from .vanderpol import VPOObj
 
-__all__ = ["LVMObj"]
+__all__ = ["ConvObj", "DTMObj", "FullerObj", "LVMObj", "VPOObj"]

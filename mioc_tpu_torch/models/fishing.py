@@ -10,14 +10,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..objectives.ode import ODEObjective, _numpy_dtype, const_dot
+from ..objectives.ode import RowwiseODEObjective, _numpy_dtype, const_dot
 from ..ops.levels import bounded_sum_levels
 from .._device import resolve_dtype
 
 __all__ = ["LVMObj"]
 
 
-class LVMObj(ODEObjective):
+class LVMObj(RowwiseODEObjective):
     def __init__(
         self,
         nt: int = 1200,
@@ -50,23 +50,24 @@ class LVMObj(ODEObjective):
         self._v1 = torch.as_tensor(self.v1, device=self.device)
         self._v2 = torch.as_tensor(self.v2, device=self.device)
 
-    # The batched sweeps compute every row with the single sweep's bits
-    # (elementwise last-axis code below, fold sums in the ODE base class).
-    _batched_sweeps_bitexact = True
-
     # Dynamics (example_fishing.jl:56-76), written on the last axis so that
     # every function takes one row or any batch of rows.  ``a = c1·(u·v1)``
     # and ``c = c2·(u·v2)`` depend on the control only: the sweeps compute
-    # them for all rows and steps at once (step_terms) with the same per-step
-    # arithmetic.
-    def _rhs(self, y, a, c):
+    # them for all rows and steps at once with the same per-step arithmetic.
+    def _coupling(self, u):
+        return self.c1 * const_dot(u, self.v1), self.c2 * const_dot(u, self.v2)
+
+    def _rhs(self, y, terms):
+        a, c = terms
         y0, y1 = y[..., 0], y[..., 1]
         return torch.stack([
             y0 * (self.alpha - self.beta * y1 - a),
             y1 * (-self.gamma + self.delta * y0 - c),
         ], dim=-1)
 
-    def _rhsT_lam(self, y, lam, a, c):
+    # Adjoint product Fyᵀλ written out (the default is torch.func.vjp of F).
+    def _rhsT_lam(self, y, lam, terms):
+        a, c = terms
         y0, y1 = y[..., 0], y[..., 1]
         l0, l1 = lam[..., 0], lam[..., 1]
         return torch.stack([
@@ -74,22 +75,8 @@ class LVMObj(ODEObjective):
             -self.beta * y0 * l0 + (-self.gamma + self.delta * y0 - c) * l1,
         ], dim=-1)
 
-    def _couplings(self, u):
-        # u: one control row (M,) or any batch (..., M).
-        return self.c1 * const_dot(u, self.v1), self.c2 * const_dot(u, self.v2)
-
-    def step_terms(self, x):
-        return self._couplings(x)
-
-    def F(self, y, u, i):
-        a, c = self._couplings(u)
-        return self._rhs(y, a, c)
-
-    def F_step(self, y, x, k, terms):
-        return self._rhs(y, terms[0][..., k], terms[1][..., k])
-
     def Fy(self, y, u, i):
-        a, c = self._couplings(u)
+        a, c = self._coupling(u)
         y0, y1 = y[..., 0], y[..., 1]
         return torch.stack([
             torch.stack([self.alpha - self.beta * y1 - a, -self.beta * y0], dim=-1),
@@ -100,14 +87,6 @@ class LVMObj(ODEObjective):
         return torch.stack([(-self.c1 * y[..., 0])[..., None] * self._v1,
                             (-self.c2 * y[..., 1])[..., None] * self._v2], dim=-2)
 
-    # Adjoint product Fyᵀλ written out (the default is torch.func.vjp of F).
-    def FyT_lam(self, y, u, lam, i):
-        a, c = self._couplings(u)
-        return self._rhsT_lam(y, lam, a, c)
-
-    def FyT_lam_step(self, y, x, lam, k, terms):
-        return self._rhsT_lam(y, lam, terms[0][..., k], terms[1][..., k])
-
     # Tracking objective (example_fishing.jl:79-92).
     def G(self, y, u, i):
         return 0.5 * (y[..., 0] - 1.0) ** 2 + 0.5 * (y[..., 1] - 1.0) ** 2
@@ -117,17 +96,3 @@ class LVMObj(ODEObjective):
 
     def Gu(self, y, u, i):
         return torch.zeros_like(u)
-
-    # Batched hooks: the functions above already take (S, ·) rows.
-    def G_rows(self, ys, us, idx):
-        return self.G(ys, us, idx)
-
-    def Gy_rows(self, y, u, i):
-        return self.Gy(y, u, i)
-
-    def df_rows(self, ys0, x, lam):
-        # −F_uᵀλ + G_u, elementwise: the 2-term product per control column
-        # in a fixed order (a matmul's order could change with the batch).
-        Fu = self.Fu(ys0, x, None)  # (S, nt, 2, M)
-        return (-(Fu[..., 0, :] * lam[..., 0:1] + Fu[..., 1, :] * lam[..., 1:2])
-                + self.Gu(ys0, x, None))

@@ -31,8 +31,13 @@ and the batched hooks (:meth:`F_step`, :meth:`FyT_lam_step`, :meth:`G_rows`,
 :meth:`Gy_rows`, :meth:`df_rows`) default to ``torch.func.vmap`` of the
 per-row functions, so any model gets the batched sweeps.  A model whose
 functions work on the last axis overrides the hooks with code that needs no
-vmap (fishing does), and may precompute control-only terms for all steps at
-once (:meth:`step_terms`), keeping the per-step order of operations.
+vmap (:class:`RowwiseODEObjective`, the base of every bundled model), and
+may precompute control-only terms for all steps at once (:meth:`step_terms`),
+keeping the per-step order of operations.
+
+:meth:`ODEObjective.test_Fy` and :meth:`ODEObjective.test_Fu` check a
+model's Jacobians against forward differences of ``F`` (the reference's
+``test_Fy!``/``test_Fu!``).
 """
 
 from __future__ import annotations
@@ -45,7 +50,7 @@ from .._device import resolve_device, resolve_dtype
 from ..ops.tv import fold_sum
 from .base import LazyObjective
 
-__all__ = ["ODEObjective", "const_dot"]
+__all__ = ["ODEObjective", "RowwiseODEObjective", "const_dot"]
 
 
 def const_dot(u, v):
@@ -124,6 +129,58 @@ class ODEObjective(LazyObjective):
 
     def Gu(self, y, u, i):
         return grad(lambda uu: self.G(y, uu, i))(u)
+
+    # -- user-facing FD Jacobian checkers --------------------------------------
+    # The reference's test_Fy!/test_Fu! (ODEObjective.jl:186-241), as in the
+    # JAX package: the Jacobian at a random admissible point against forward
+    # differences of F over a sweep of step sizes.  Returns the per-step
+    # relative errors; the minimum shows the FD V-shape (≈ sqrt(eps)).
+
+    def sample_point(self, rng):
+        """Random ``(y, u, i)`` for the FD checks, from the numpy generator
+        ``rng`` (the JAX package's draws).  Override for dynamics with
+        restricted domains (``example_doubletank.jl:116-179``)."""
+        y = self._on_device(rng.standard_normal(self.ny))
+        if self.admissible is not None and self.admissible.L:
+            u = self._on_device(self.admissible.levels[rng.integers(self.admissible.L)])
+        else:
+            u = self._on_device(rng.standard_normal(self.nx))
+        return y, u, int(rng.integers(self.nt))
+
+    def _on_device(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, dtype=_numpy_dtype(self.dtype)),
+                               device=self.device)
+
+    def _test_jac(self, wrt, seed, steps, verbose):
+        rng = np.random.default_rng(seed)
+        y, u, i = self.sample_point(rng)
+        if steps is None:
+            steps = np.logspace(-10, 0, 11)
+        h = rng.standard_normal(self.ny if wrt == "y" else self.nx)
+        h = self._on_device(h / np.linalg.norm(h))
+        if wrt == "y":
+            J = self.Fy(y, u, i)
+            fd_of = lambda t: (self.F(y + t * h, u, i) - self.F(y, u, i)) / t
+        else:
+            J = self.Fu(y, u, i)
+            fd_of = lambda t: (self.F(y, u + t * h, i) - self.F(y, u, i)) / t
+        Jh = J.cpu().numpy() @ h.cpu().numpy()
+        scale = max(float(np.linalg.norm(Jh)), 1.0)
+        errs = np.array([float(np.linalg.norm(fd_of(t).cpu().numpy() - Jh)) / scale
+                         for t in steps])
+        if verbose:
+            name = "Fy" if wrt == "y" else "Fu"
+            for t, e in zip(steps, errs):
+                print(f"{name}: t = {t:9.3e}   rel err = {e:9.3e}")
+        return errs
+
+    def test_Fy(self, seed=None, steps=None, verbose=False):
+        """FD-check the state Jacobian ``Fy`` (ODEObjective.jl:186-213)."""
+        return self._test_jac("y", seed, steps, verbose)
+
+    def test_Fu(self, seed=None, steps=None, verbose=False):
+        """FD-check the control Jacobian ``Fu`` (ODEObjective.jl:215-241)."""
+        return self._test_jac("u", seed, steps, verbose)
 
     # -- batched sweep hooks (S rows) --------------------------------------------
     def step_terms(self, x):
@@ -223,3 +280,65 @@ class ODEObjective(LazyObjective):
         df, lam = self._adjoint(self.x, self._aux)
         self.adjoint = lam
         return df
+
+
+def _at_step(terms, k):
+    """Step ``k`` of :meth:`RowwiseODEObjective.step_terms` (a tensor or a
+    tuple of tensors with a trailing time axis)."""
+    if isinstance(terms, tuple):
+        return tuple(t[..., k] for t in terms)
+    return terms[..., k]
+
+
+class RowwiseODEObjective(ODEObjective):
+    """An ODE objective written on the last axis: ``F``, ``FyT_lam``, ``Fy``,
+    ``Fu``, ``G``, ``Gy`` and ``Gu`` take one row or any batch of rows, so
+    the batched hooks need no vmap and every batched row has the single
+    sweep's bits (``_batched_sweeps_bitexact``).
+
+    A subclass splits its dynamics into the control-only terms
+    :meth:`_coupling` (``u (..., M)`` → a tensor or a tuple of tensors of
+    ``u``'s leading shape) and :meth:`_rhs` / :meth:`_rhsT_lam`, which take
+    those terms: the sweeps compute the terms for all rows and steps at once
+    with the per-step arithmetic of ``F``."""
+
+    _batched_sweeps_bitexact = True
+
+    def _coupling(self, u):
+        raise NotImplementedError
+
+    def _rhs(self, y, terms):
+        raise NotImplementedError
+
+    def _rhsT_lam(self, y, lam, terms):
+        raise NotImplementedError
+
+    def F(self, y, u, i):
+        return self._rhs(y, self._coupling(u))
+
+    def FyT_lam(self, y, u, lam, i):
+        return self._rhsT_lam(y, lam, self._coupling(u))
+
+    def step_terms(self, x):
+        return self._coupling(x)
+
+    def F_step(self, y, x, k, terms):
+        return self._rhs(y, _at_step(terms, k))
+
+    def FyT_lam_step(self, y, x, lam, k, terms):
+        return self._rhsT_lam(y, lam, _at_step(terms, k))
+
+    def G_rows(self, ys, us, idx):
+        return self.G(ys, us, idx)
+
+    def Gy_rows(self, y, u, i):
+        return self.Gy(y, u, i)
+
+    def df_rows(self, ys0, x, lam):
+        # −F_uᵀλ + G_u, elementwise: the ny-term product per control column
+        # in a fixed order (a matmul's order could change with the batch).
+        Fu = self.Fu(ys0, x, None)  # (S, nt, ny, M)
+        acc = Fu[..., 0, :] * lam[..., 0:1]
+        for j in range(1, self.ny):
+            acc = acc + Fu[..., j, :] * lam[..., j:j + 1]
+        return -acc + self.Gu(ys0, x, None)

@@ -23,7 +23,8 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "build_all", "build_log", "library"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("dp_build", "chase", "dp_build_batched", "chase_batched", "chase_trials")
+SOURCES = ("dp_build", "chase", "dp_build_batched", "chase_batched", "chase_trials",
+           "chase_vec")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

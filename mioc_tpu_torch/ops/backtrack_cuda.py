@@ -2,6 +2,10 @@
 
 * :func:`chase` — ``csrc/chase.cu``, counterpart of
   ``mioc_tpu.ops.backtrack_pallas._bt_kernel``: one start, one cap;
+* :func:`chase_vec` — ``csrc/chase_vec.cu``, counterpart of
+  ``_bt_kernel_vec`` (``MIOC_CHASE=vec``): the same function as
+  :func:`chase`, walked by one warp with broadcast state on U planes staged
+  in shared memory;
 * :func:`chase_batched` — ``csrc/chase_batched.cu``, counterpart of
   ``_bt_kernel_batched``: S starts, a cap per start;
 * :func:`chase_trials` — ``csrc/chase_trials.cu``, counterpart of
@@ -24,9 +28,12 @@ import ctypes
 
 import torch
 
-__all__ = ["chase", "chase_batched", "chase_trials", "MAX_TRIALS"]
+__all__ = ["chase", "chase_vec", "vec_chunk", "chase_batched", "chase_trials",
+           "MAX_TRIALS"]
 
 MAX_TRIALS = 128  # caps per start the trial-wave kernel takes
+VEC_SMEM_BYTES = 160 * 1024  # dynamic shared memory chase_vec may stage into
+VEC_MAX_CHUNK = 64  # time steps per staged chunk of chase_vec
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -71,18 +78,22 @@ def _caps(B, shape, device) -> torch.Tensor:
     return torch.as_tensor(B, dtype=torch.int32, device=device).expand(shape).contiguous()
 
 
-def chase(U, phi0, btilde, B_new):
-    """Launch the chase of one start; ``B_new`` is an int or a 0-d int32
-    tensor on the card.  Returns ``level_idx (nt,)`` int32 on the card."""
+def _single(U, phi0, btilde, B_new):
+    """Checks of one start's tables and its cap; returns ``(nt, L, B, cap
+    tensor on the card or None, cap int)``."""
     nt, L, B = _check_tables(U, phi0, btilde, batched=False)
     for name, t in (("U", U), ("phi0", phi0), ("btilde", btilde)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    B_dev, B_int = None, 0
     if isinstance(B_new, torch.Tensor):
-        B_dev = _caps(B_new, (), phi0.device)
-    else:
-        B_int = int(B_new)
+        return nt, L, B, _caps(B_new, (), phi0.device), 0
+    return nt, L, B, None, int(B_new)
+
+
+def chase(U, phi0, btilde, B_new):
+    """Launch the chase of one start; ``B_new`` is an int or a 0-d int32
+    tensor on the card.  Returns ``level_idx (nt,)`` int32 on the card."""
+    nt, L, B, B_dev, B_int = _single(U, phi0, btilde, B_new)
     out = torch.empty(nt, dtype=torch.int32, device=phi0.device)
     fn = _fn("chase", "mioc_chase", [_P] * 5 + [_I] * 6 + [_P])
     with torch.cuda.device(phi0.device):
@@ -97,6 +108,46 @@ def chase(U, phi0, btilde, B_new):
 
 
 chase.launches = 0
+
+
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def vec_chunk(nt: int, L: int, B: int, u_bytes: int) -> int:
+    """Time steps per staged chunk of :func:`chase_vec`: the largest K up to
+    ``VEC_MAX_CHUNK`` whose shared layout in ``csrc/chase_vec.cu`` (two U
+    buffers of K planes with 16 bytes of alignment slack, two b̃ buffers of K
+    rows) fits ``VEC_SMEM_BYTES``; a plane too large for that raises."""
+    plane = L * (B + 1) * u_bytes
+    K = min(VEC_MAX_CHUNK, max(nt - 1, 1))
+    while K > 0 and 2 * _round16(K * plane + 16) + 2 * K * L * 4 > VEC_SMEM_BYTES:
+        K -= 1
+    if K == 0:
+        raise ValueError(f"chase_vec: one U plane of L={L}, B={B} ({plane} B) does not "
+                         f"fit twice in {VEC_SMEM_BYTES} B of shared memory")
+    return K
+
+
+def chase_vec(U, phi0, btilde, B_new):
+    """Launch the warp-broadcast chase of one start (``MIOC_CHASE=vec``): the
+    same arguments and result as :func:`chase`, bit for bit."""
+    nt, L, B, B_dev, B_int = _single(U, phi0, btilde, B_new)
+    K = vec_chunk(nt, L, B, U.element_size())
+    out = torch.empty(nt, dtype=torch.int32, device=phi0.device)
+    fn = _fn("chase_vec", "mioc_chase_vec", [_P] * 5 + [_I] * 7 + [_P])
+    with torch.cuda.device(phi0.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(phi0.data_ptr(), btilde.data_ptr(), U.data_ptr(),
+                 None if B_dev is None else B_dev.data_ptr(), out.data_ptr(),
+                 nt, L, B, B_int, K, phi0.element_size(), U.element_size(), stream)
+    if err != 0:
+        raise RuntimeError(f"chase_vec launch failed: CUDA error {err}")
+    chase_vec.launches += 1
+    return out
+
+
+chase_vec.launches = 0
 
 
 def _start_stride(name, t) -> int:

@@ -45,6 +45,8 @@ CPU and CUDA paths hand the chase the same tables.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -58,6 +60,7 @@ __all__ = [
     "build_tables_batched_plain",
     "backtrack",
     "backtrack_plain",
+    "chase_kernel_name",
     "backtrack_batched",
     "backtrack_batched_plain",
     "backtrack_trials",
@@ -222,20 +225,42 @@ def backtrack_plain(U, phi0, btilde, B_new):
 backtrack_plain.calls = 0
 
 
+CHASE_VARIANTS = {"scalar": "chase", "vec": "chase_vec"}
+
+
+def chase_kernel_name() -> str:
+    """The single chase's CUDA kernel that ``MIOC_CHASE`` selects: unset or
+    ``"scalar"`` → ``"chase"``, ``"vec"`` → ``"chase_vec"``; any other value
+    raises ``ValueError``, so a typo cannot run the other kernel."""
+    variant = os.environ.get("MIOC_CHASE", "scalar")
+    if variant not in CHASE_VARIANTS:
+        raise ValueError(f"MIOC_CHASE must be one of {sorted(CHASE_VARIANTS)}, "
+                         f"got {variant!r}")
+    return CHASE_VARIANTS[variant]
+
+
 def backtrack(U, phi0, btilde, levels, B_new):
     """Extract the optimal control from the DP tables (``eval_u_TRM!``).
 
     Returns ``(u, level_idx)``: ``u = levels[level_idx]`` of shape
     ``(nt, M)`` and ``level_idx (nt,)`` int32.  ``B_new`` is an int or a
-    0-d int32 tensor.  CPU tensors take the plain version; CUDA tensors
-    launch the ``chase`` kernel.
+    0-d int32 tensor.  CPU tensors take the plain version, which is the
+    plain version of both chase kernels; CUDA tensors launch the kernel that
+    :func:`chase_kernel_name` names, ``chase`` or ``chase_vec``.
+
+    Two differences from the JAX package's ``MIOC_CHASE``: it is read at
+    every call (the JAX package reads it once, at import), so one process can
+    switch kernels; and a value other than ``"scalar"`` or ``"vec"`` raises
+    on both routes (the JAX package runs the scalar chase for any other
+    value).  The batched and trial-wave chases do not read it.
     """
+    name = chase_kernel_name()
     if phi0.device.type == "cpu":
         level_idx = backtrack_plain(U, phi0, btilde, B_new)
     else:
-        from .backtrack_cuda import chase
+        from . import backtrack_cuda
 
-        level_idx = chase(U, phi0, btilde, B_new)
+        level_idx = getattr(backtrack_cuda, name)(U, phi0, btilde, B_new)
     return _levels_at(levels, phi0, level_idx), level_idx
 
 

@@ -83,7 +83,8 @@ class DeviceTRMResult(NamedTuple):
 
 class _Carry(NamedTuple):
     u_old: torch.Tensor        # (S, nt, nx)
-    ys_old: torch.Tensor       # (nt, S, ny): the state cache at u_old
+    ys_old: torch.Tensor       # (nt, S, ny): the state cache at u_old, or
+                               # None for an objective without a state
     J_old: torch.Tensor        # (S,)
     TV_old: torch.Tensor       # (S,)
     u_cand: torch.Tensor       # (S, nt, nx)
@@ -113,6 +114,9 @@ def _select(mask, new, old):
     for name, n, o in zip(old._fields, new, old):
         if isinstance(o, tuple):
             out.append(_select(mask, n, o))
+            continue
+        if o is None:  # no state cache (an objective without a state)
+            out.append(None)
             continue
         shape = [1] * o.dim()
         shape[1 if name == "ys_old" else 0] = -1
@@ -256,7 +260,8 @@ def make_device_trm(obj, par, outer_chunk=None, speculative: bool = False,
         always ``u``."""
         return c._replace(
             u_old=torch.where(good[:, None, None], u, c.u_old),
-            ys_old=torch.where(good[None, :, None], ys_new, c.ys_old),
+            ys_old=(None if ys_new is None
+                    else torch.where(good[None, :, None], ys_new, c.ys_old)),
             J_old=torch.where(good, J_new, c.J_old),
             TV_old=torch.where(good, TV_new, c.TV_old),
             u_cand=u,
@@ -282,7 +287,7 @@ def make_device_trm(obj, par, outer_chunk=None, speculative: bool = False,
         first = torch.argmax(exit_k.to(torch.int32), 1)       # first True
         sel = torch.where(has, first, torch.full_like(first, K - 1))
         rows = torch.arange(S, device=dev)
-        ys_new = ys_b.view(ys_b.shape[0], S, K, -1)[:, rows, sel]
+        ys_new = None if ys_b is None else ys_b.view(ys_b.shape[0], S, K, -1)[:, rows, sel]
         c = accept(c, us[rows, sel], ys_new, J_news[rows, sel], TV_news[rows, sel],
                    has & optimal_k[rows, sel], has & good_k[rows, sel])
         # Sequential-equivalent counters: trials 1 … sel.

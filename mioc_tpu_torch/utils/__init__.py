@@ -1,8 +1,9 @@
-"""Starting controls, the Julia RNG replica, logging, checks and checkpoints."""
+"""Starting controls, the Julia RNG replica, logging, checks, ``.dat`` IO and
+checkpoints."""
 
 from .checks import assert_admissible, check_budget
 from .init import rand_func, rand_func_cont, rand_func_int
-from .io import load_checkpoint, save_checkpoint
+from .io import import_from_latex_format, load_checkpoint, save_checkpoint, save_latex_format
 from .julia_rng import JuliaMersenneTwister
 from .logging import IterationLog
 
@@ -11,9 +12,11 @@ __all__ = [
     "JuliaMersenneTwister",
     "assert_admissible",
     "check_budget",
+    "import_from_latex_format",
     "load_checkpoint",
     "rand_func",
     "rand_func_cont",
     "rand_func_int",
     "save_checkpoint",
+    "save_latex_format",
 ]

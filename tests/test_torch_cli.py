@@ -1,0 +1,163 @@
+"""Port vs JAX package: the problem registry, the CLI and the ``.dat`` IO.
+
+The registry lists the same names with the same presets; plugins are found
+and a broken one only warns.  ``mioc_tpu_torch.cli.main`` on the CPU prints
+the JSON line of ``mioc_tpu.cli.main`` run with the same arguments: J to
+rtol 1e-12, iterations and evaluation counts equal.  What the port does not
+have yet raises ``NotImplementedError`` naming its ROADMAP.md item.
+"""
+
+import json
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from mioc_tpu import cli as jcli  # noqa: E402
+from mioc_tpu.models import registry as jreg  # noqa: E402
+from mioc_tpu.utils import io as jio  # noqa: E402
+from mioc_tpu_torch import cli  # noqa: E402
+from mioc_tpu_torch.models import registry  # noqa: E402
+from mioc_tpu_torch.utils import io as tio  # noqa: E402
+
+BASE = ["--no-plot", "--no-log", "--seed", "0"]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_names_and_presets_equal_jax():
+    assert registry.available() == jreg.available()
+    for name in jreg.available():
+        assert registry.get(name).preset == jreg.get(name).preset, name
+
+
+def _json_line(out):
+    return json.loads([ln for ln in out.splitlines() if ln.startswith("{")][-1])
+
+
+@pytest.mark.parametrize("argv", [["fishing", "--n", "64"],
+                                  ["convolution", "--n", "64"],
+                                  ["convolution", "--n", "64", "--device-loop"]],
+                         ids=["fishing", "convolution", "convolution-device-loop"])
+def test_cli_prints_the_jax_result(capsys, argv):
+    assert jcli.main(argv + BASE) == 0
+    want = _json_line(capsys.readouterr().out)
+    assert cli.main(argv + BASE + ["--device", "cpu"]) == 0
+    got = _json_line(capsys.readouterr().out)
+    assert set(got) == set(want)
+    for key in ("problem", "n", "iterations", "f_evals", "df_evals", "converged"):
+        assert got[key] == want[key], key
+    np.testing.assert_allclose(got["J"], want["J"], rtol=1e-12)
+
+
+def test_cli_multistart_and_metrics(capsys, tmp_path):
+    path = tmp_path / "m.jsonl"
+    assert cli.main(["doubletank", "--n", "48", "--multistart", "2", "--device", "cpu",
+                     "--metrics", str(path)] + BASE) == 0
+    res = _json_line(capsys.readouterr().out)
+    assert res["converged"] and res["problem"] == "doubletank"
+    assert path.stat().st_size > 0
+    assert cli.main(["fuller", "--n", "48", "--multistart", "2", "--device-loop",
+                     "--device", "cpu"] + BASE) == 0
+    assert _json_line(capsys.readouterr().out)["converged"]
+
+
+@pytest.mark.parametrize("argv,item", [
+    (["mixed", "--n", "32", "--no-plot"], "item 5"),
+    (["heat", "--n", "32", "--no-plot"], "item 3"),
+    (["fishing", "--n", "32"], "item 7"),
+    (["fishing", "--n", "32", "--no-plot", "--dp-backend", "temporal"], "item 6"),
+])
+def test_unported_parts_raise(argv, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue A {item}"):
+        cli.main(argv + ["--device", "cpu"])
+
+
+def test_dp_backend_flag():
+    assert cli._dp_backend("pallas", torch.device("cpu")) is None
+    assert cli._dp_backend("scan", torch.device("cpu")) is None
+    assert cli._dp_backend(None, torch.device("cuda")) is None
+    with pytest.raises(ValueError, match="plain versions"):
+        cli._dp_backend("scan", torch.device("cuda"))
+    with pytest.raises(NotImplementedError, match="item 6"):
+        cli._dp_backend("sharded", torch.device("cpu"))
+
+
+def test_cli_defaults_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli.main(["fishing", "--n", "16", "--no-plot", "--no-log"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        registry.build("convolution", 16)
+
+
+PLUGIN = '''
+from mioc_tpu_torch.models import LVMObj
+
+PRESET = dict(beta=1e-3, delta0=1.0, p=1)
+
+
+class FooObj(LVMObj):
+    """A fishing variant with a shorter horizon."""
+
+    def __init__(self, nt=64, *, device=None, dtype=None):
+        super().__init__(nt, T1=6.0, device=device, dtype=dtype)
+'''
+
+
+def test_plugin_is_discovered_and_solved(tmp_path, monkeypatch, capsys):
+    monkeypatch.setattr(registry, "_REGISTRY", dict(registry._REGISTRY))
+    (tmp_path / "example_torchfoo.py").write_text(PLUGIN)
+    monkeypatch.setenv("MIOC_PROBLEMS_PATH", str(tmp_path))
+    assert "torchfoo" in registry.discover()
+    spec = registry.get("torchfoo")
+    assert spec.preset == dict(beta=1e-3, delta0=1.0, p=1)
+    obj = registry.build("torchfoo", 40, device="cpu")
+    assert obj.nt == 40 and obj.T1 == 6.0 and obj.device.type == "cpu"
+    assert cli.main(["torchfoo", "--n", "40", "--device", "cpu"] + BASE) == 0
+    assert _json_line(capsys.readouterr().out)["problem"] == "torchfoo"
+
+
+def test_broken_plugin_warns_and_the_cli_runs(tmp_path, monkeypatch, capsys):
+    monkeypatch.setattr(registry, "_REGISTRY", dict(registry._REGISTRY))
+    (tmp_path / "example_torchbroken.py").write_text("raise RuntimeError('boom')\n")
+    monkeypatch.setenv("MIOC_PROBLEMS_PATH", str(tmp_path))
+    assert cli.main(["fishing", "--n", "32", "--device", "cpu"] + BASE) == 0
+    captured = capsys.readouterr()
+    assert "warning: plugin" in captured.err and "boom" in captured.err
+    assert "torchbroken" not in registry.available()
+    assert _json_line(captured.out)["problem"] == "fishing"
+
+
+def test_unknown_problem_exits():
+    with pytest.raises(SystemExit):
+        cli.main(["nosuchproblem", "--device", "cpu", "--no-plot"])
+    with pytest.raises(KeyError, match="nosuchproblem"):
+        registry.get("nosuchproblem")
+
+
+def test_dat_round_trip_across_packages(tmp_path):
+    """A ``.dat`` file written by either package reads back equal with the
+    other's reader."""
+    rng = np.random.default_rng(0)
+    x, y = np.linspace(0, 1, 17), rng.normal(size=17)
+    d = str(tmp_path)
+    tio.save_latex_format(x, y, "port", directory=d)
+    jio.save_latex_format(x, y, "jax", directory=d)
+    for reader, name in ((jio.import_from_latex_format, "port"),
+                         (tio.import_from_latex_format, "jax"),
+                         (tio.import_from_latex_format, "port")):
+        xr, yr = reader(name, directory=d)
+        np.testing.assert_array_equal(xr, x)
+        np.testing.assert_array_equal(yr, y)
+    assert (tmp_path / "port.dat").read_text() == (tmp_path / "jax.dat").read_text()
+    (tmp_path / "bad.dat").write_text("x    y\n1.0 nope\n")
+    with pytest.raises(ValueError):
+        tio.import_from_latex_format("bad", directory=d)

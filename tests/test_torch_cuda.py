@@ -230,3 +230,72 @@ def test_small_multistart_counts_launches(cuda_device):
     np.testing.assert_array_equal(ref.u, seq.u)
     np.testing.assert_array_equal(ref.inner_steps, seq.inner_steps)
     np.testing.assert_allclose(ref.J, seq.J, rtol=1e-12)
+
+
+# ------------------------------------------------------------ chase_vec
+
+
+VEC_CASES = CASES + [
+    ("nt2", lambda: product_levels([[-2, -1, 0, 1, 2]]), 2, 4),
+    ("heat", lambda: product_levels([list(range(6))] * 2), 1000, 204),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name,levels,nt,B", VEC_CASES)
+def test_chase_vec_equals_plain(cuda_device, name, levels, nt, B, dtype):
+    """The warp-broadcast chase equals the plain chase: int8 and int32 U
+    (L130), chunk edges (nt-1 not a multiple of the staged chunk or of 32),
+    int and device-tensor caps, a cap past B and a cap of 0."""
+    from mioc_tpu_torch.ops.backtrack_cuda import chase_vec, vec_chunk
+
+    adm = levels()
+    stage, btilde, jump, smax = _tables(adm, nt, B, dtype, cuda_device)
+    U, phi0 = tb.build_tables_plain(stage, btilde, jump, B, smax)
+    assert vec_chunk(nt, adm.L, B, U.element_size()) >= 1
+    for cap in (B + 5, B, B // 2, 1, 0):
+        want = tb.backtrack_plain(U, phi0, btilde, cap)
+        assert torch.equal(chase_vec(U, phi0, btilde, cap), want), cap
+        dev_cap = torch.tensor(cap, dtype=torch.int32, device=cuda_device)
+        assert torch.equal(chase_vec(U, phi0, btilde, dev_cap), want), cap
+
+
+def test_mioc_chase_vec_routes_backtrack(cuda_device, monkeypatch):
+    """Under MIOC_CHASE=vec the single chase launches chase_vec, not chase;
+    unset or "scalar" launches chase; anything else raises."""
+    from mioc_tpu_torch.ops.backtrack_cuda import chase, chase_vec
+
+    adm = product_levels([[-2, -1, 0, 1, 2]])
+    stage, btilde, jump, smax = _tables(adm, 300, 20, torch.float64, cuda_device)
+    U, phi0 = tb.build_tables(stage, btilde, jump, 20, smax)
+    runs = {}
+    for variant in (None, "scalar", "vec"):
+        if variant is None:
+            monkeypatch.delenv("MIOC_CHASE", raising=False)
+        else:
+            monkeypatch.setenv("MIOC_CHASE", variant)
+        n_c, n_v = chase.launches, chase_vec.launches
+        runs[variant] = tb.backtrack(U, phi0, btilde, adm.levels, 10)[1]
+        want = (0, 1) if variant == "vec" else (1, 0)
+        assert (chase.launches - n_c, chase_vec.launches - n_v) == want, variant
+    assert torch.equal(runs["vec"], runs[None]) and torch.equal(runs["scalar"], runs[None])
+    monkeypatch.setenv("MIOC_CHASE", "vector")
+    with pytest.raises(ValueError, match="MIOC_CHASE"):
+        tb.backtrack(U, phi0, btilde, adm.levels, 10)
+
+
+def test_conv_rows_bit_equal_on_card(cuda_device):
+    """ConvObj's batched f and ∇f rows have the single evaluation's bits."""
+    from mioc_tpu_torch.models import ConvObj
+    from mioc_tpu_torch.utils.init import rand_func
+
+    obj = ConvObj(nt=300, device=cuda_device)
+    X = torch.as_tensor(np.stack([rand_func(obj, seed=s) for s in range(20)]),
+                        device=cuda_device)
+    f1 = torch.stack([obj._forward_batch(X[s:s + 1])[0][0] for s in range(20)])
+    d1 = torch.stack([obj._adjoint_batch(X[s:s + 1], None)[0][0] for s in range(20)])
+    for S in (1, 9, 20):
+        assert torch.equal(obj._forward_batch(X[:S])[0].view(torch.int64),
+                           f1[:S].view(torch.int64))
+        assert torch.equal(obj._adjoint_batch(X[:S], None)[0].view(torch.int64),
+                           d1[:S].view(torch.int64))

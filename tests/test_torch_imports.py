@@ -44,7 +44,9 @@ def test_port_modules_found():
     names = {p.relative_to(PORT).as_posix() for p in FILES if PORT in p.parents}
     assert {"ops/bellman.py", "ops/bellman_cuda.py", "ops/backtrack_cuda.py",
             "solvers/trm.py", "solvers/trm_device.py", "parallel/__init__.py",
-            "parallel/batch.py", "interop.py"} <= names
+            "parallel/batch.py", "interop.py", "cli.py", "models/registry.py",
+            "models/convolution.py", "models/doubletank.py", "models/vanderpol.py",
+            "models/fuller.py", "utils/io.py"} <= names
     assert (ROOT / "chip_smoke.py").exists()
 
 
@@ -55,7 +57,7 @@ def test_every_kernel_has_its_source():
 
     assert set(_kernels.SOURCES) == {p.stem for p in (PORT / "csrc").glob("*.cu")}
     assert {"dp_build", "chase", "dp_build_batched", "chase_batched",
-            "chase_trials"} <= set(_kernels.SOURCES)
+            "chase_trials", "chase_vec"} <= set(_kernels.SOURCES)
 
 
 def test_importing_the_port_loads_no_jax():
