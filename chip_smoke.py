@@ -11,14 +11,23 @@ Run from the root of a checkout.  It builds the CUDA kernels from
    (fishing nt=1024 L=3 B=170; conv nt=2048 L=5 B=128; heat-scale nt=1024
    L=36 B=204), in float32 and float64, with inputs from a seeded numpy
    generator.  The tables U and phi0 must be BIT-equal and the chased level
-   indices of both chases equal for B_new ∈ {B, B//2, B//4, 0}.  Times are
-   CUDA-event medians, taken in turns (plain, kernel, kernel, plain), and
-   ``chase_vec`` in turns with ``chase`` too;
+   indices of both chases equal for B_new ∈ {B, B//2, B//4, 0}; at the
+   infeasible cap -1, and on tables with a +inf seed (u_old's row 0 more
+   than smax from every level), all four chase kernels must equal the plain
+   walk.  Times are CUDA-event medians per call, host side of the call
+   included, taken in turns (plain, kernel, kernel, plain), and
+   ``chase_vec`` in turns with ``chase`` too; each kernel's ns per step is
+   its ms·10⁶/(nt-1).  (The kernels' device times alone come from
+   ``python -m mioc_tpu_torch.profile_kernels``: a profiler trace here
+   would slow every later launch of this process, and so the paths' walls);
 2. holds the batched kernels (``dp_build_batched``, ``chase_batched``,
    ``chase_trials``) against their plain versions the same way, at fishing
-   (S=32 starts) and heat scale (S=8), float32 and float64: tables bit-equal,
-   per-start caps and Kt=9 trial caps (the fishing halving schedule 170 … 0;
-   B, B/2, … 0 at heat scale) giving equal indices;
+   (S=32 starts), conv (S=8) and heat scale (S=8), float32 and float64:
+   tables bit-equal, per-start caps and Kt=9 trial caps (the fishing halving
+   schedule 170 … 0; B, B/2, … 0 at conv and heat scale) giving equal
+   indices; then the edge shapes (nt 1 and 2, L = 1, B = 0, chase chunks of
+   one step, build rows read in place at the shared-memory limit, 149 chase
+   chunks) for ``dp_build``, ``dp_build_batched`` and ``chase``;
 3. drives the port's paths as a user would, each with every launch count set
    to 0 just before it and read just after, on the card at float64 with the
    fishing preset ``LVMObj(nt=1024)``, ``TRMParameters(beta=1e-4,
@@ -60,7 +69,7 @@ Run from the root of a checkout.  It builds the CUDA kernels from
    d. ``doubletank``, ``vanderpol`` and ``fuller`` at ``--n 1024 --seed
       0``: the JAX package's constants;
    and prints where the time of (a) and (b) goes, the chases against the
-   rest, with the A/B of the two chases.
+   rest, with the A/B of the two chases at every shape.
 
 Each finding is printed as one JSON object per line; the ``kernels`` line
 comes next to last and the last line is
@@ -198,10 +207,10 @@ def bits(t, torch):
 
 def kernel_phase(torch, name, nt, B, level_spec, preset, dtype, seed):
     from mioc_tpu_torch.ops import levels as lv
-    from mioc_tpu_torch.ops.backtrack_cuda import chase, chase_vec, vec_chunk
+    from mioc_tpu_torch.ops.backtrack_cuda import chase, chase_plan, chase_vec, vec_chunk
     from mioc_tpu_torch.ops.bellman import (backtrack_plain, build_tables_plain,
                                             max_budget_use, stage_tables)
-    from mioc_tpu_torch.ops.bellman_cuda import dp_build
+    from mioc_tpu_torch.ops.bellman_cuda import build_plan, dp_build
 
     kind, V = level_spec
     adm = lv.bounded_sum_levels(V, 1, 1) if kind == "bounded" else lv.product_levels(V)
@@ -240,6 +249,20 @@ def kernel_phase(torch, name, nt, B, level_spec, preset, dtype, seed):
         vec_err = max(vec_err, int((i_v.long() - i_p.long()).abs().max()))
         require(idx_err == 0, f"{name} {dtype}: chase equal at B_new={bn}")
         require(vec_err == 0, f"{name} {dtype}: chase_vec equal at B_new={bn}")
+    # The infeasible cap (-1 masks every seed) and a +inf seed (u_old's row 0
+    # more than smax from every level, so phi0 is +inf): the walk's budget
+    # leaves [0, B], and all four chase kernels follow the plain walk's index
+    # rule (a negative budget counts from the end, then clamps).
+    all_chases_equal(torch, U_k, phi_k, btilde, (-1,), f"{name} {dtype} infeasible cap")
+    u_far = u_old.clone()
+    u_far[0] = float(np.abs(adm.levels).max() + smax + 1)
+    st_f, bt_f = stage_tables(grad, u_far, adm.levels, tau)
+    U_f, phi_f = dp_build(st_f, bt_f, jump, B, smax)
+    U_fp, phi_fp = build_tables_plain(st_f, bt_f, jump, B, smax)
+    require(torch.equal(U_f, U_fp) and torch.equal(bits(phi_f, torch), bits(phi_fp, torch)),
+            f"{name} {dtype}: +inf-seed tables bit-equal")
+    require(not bool(torch.isfinite(phi_f).any()), f"{name} {dtype}: phi0 all +inf")
+    all_chases_equal(torch, U_f, phi_f, bt_f, budgets, f"{name} {dtype} +inf seed")
 
     dt_name = "float64" if dtype == torch.float64 else "float32"
     ds, us = phi_k.element_size(), U_k.element_size()
@@ -273,22 +296,115 @@ def kernel_phase(torch, name, nt, B, level_spec, preset, dtype, seed):
         lambda: chase_vec(U_k, phi_k, btilde, B), 10, 10)
     bb_ms, bb_by = bound(build_bytes, build_ops, dt_name)
     cb_ms, cb_by = bound(chase_bytes, chase_ops, dt_name)
+    steps = max(nt - 1, 1)
     out = {
         "phase": "kernels", "shape": name, "dtype": dt_name, "nt": nt, "L": L,
         "B": B, "smax": smax, "u_dtype": str(U_k.dtype).replace("torch.", ""),
+        "infeasible_equal_at": [-1], "inf_seed_equal_at": budgets,
         "dp_build": {"bit_equal": True, "max_abs_err": phi_err, "kernel_ms": b_ms,
-                     "plain_ms": b_plain, "bound_ms": bb_ms, "bound_by": bb_by,
-                     "ops": build_ops, "bytes": build_bytes},
+                     "ns_per_step": b_ms * 1e6 / steps, "plain_ms": b_plain,
+                     "bound_ms": bb_ms, "bound_by": bb_by, "ops": build_ops,
+                     "bytes": build_bytes,
+                     "plan": build_plan(nt, L, B, ds)._asdict()},
         "chase": {"equal_at": budgets, "max_abs_err": idx_err, "kernel_ms": c_ms,
-                  "plain_ms": c_plain, "bound_ms": cb_ms, "bound_by": cb_by,
-                  "ops": chase_ops, "bytes": chase_bytes},
+                  "ns_per_step": c_ms * 1e6 / steps, "plain_ms": c_plain,
+                  "bound_ms": cb_ms, "bound_by": cb_by, "ops": chase_ops,
+                  "bytes": chase_bytes, "plan": chase_plan(nt, L, B, us)._asdict()},
         # The same function as chase, so the same bound.
         "chase_vec": {"equal_at": budgets, "max_abs_err": vec_err, "kernel_ms": v_ms,
-                      "plain_ms": v_plain, "bound_ms": cb_ms, "bound_by": cb_by,
+                      "ns_per_step": v_ms * 1e6 / steps, "plain_ms": v_plain,
+                      "bound_ms": cb_ms, "bound_by": cb_by,
                       "chunk": vec_chunk(nt, L, B, us),
                       "in_turns_with_chase": {"chase_vec_ms": ab_vec,
                                               "chase_ms": ab_chase}},
     }
+    emit(out)
+    return out
+
+
+def all_chases_equal(torch, U, phi0, btilde, caps, what) -> None:
+    """``chase``, ``chase_vec``, ``chase_batched`` (two starts reading one
+    table set, start stride 0) and ``chase_trials`` equal the plain walk at
+    each cap."""
+    from mioc_tpu_torch.ops.backtrack_cuda import (chase, chase_batched, chase_trials,
+                                                   chase_vec)
+    from mioc_tpu_torch.ops.bellman import backtrack_plain
+
+    for cap in caps:
+        want = backtrack_plain(U, phi0, btilde, cap)
+        two = torch.tensor([cap, cap], dtype=torch.int32, device=phi0.device)
+        got = {"chase": chase(U, phi0, btilde, cap),
+               "chase_vec": chase_vec(U, phi0, btilde, cap),
+               "chase_batched": chase_batched(U.expand(2, -1, -1, -1),
+                                              phi0.expand(2, -1, -1),
+                                              btilde.expand(2, -1, -1), two),
+               "chase_trials": chase_trials(U[None], phi0[None], btilde[None],
+                                            two[None])[0]}
+        for kernel, idx in got.items():
+            require(torch.equal(idx, want.expand_as(idx)),
+                    f"{what}: {kernel} equal to the plain walk at cap {cap}")
+
+
+EDGES = (
+    # name, nt, B, level set: nt 1 and 2 (one chase chunk), L = 1, B = 0,
+    # chase chunks of one step, build rows read in place (L ≤ 2 at the largest B the first build kernel
+    # took, B = None), more chase chunks than the card holds blocks at once.
+    ("nt1", 1, 9, ("bounded", [[0, 1]] * 3)),
+    ("nt2", 2, 4, ("product", [[-2, -1, 0, 1, 2]])),
+    ("L1", 300, 7, ("product", [[0]])),
+    ("B0", 300, 0, ("bounded", [[0, 1]] * 3)),
+    ("one_step_chunks", 30, 6, ("product", [[-2, -1, 0, 1, 2]])),
+    ("L1_limit", 5, None, ("product", [[0]])),
+    ("L2_limit", 5, None, ("product", [[0, 1]])),
+    ("heat_149_chunks", 4000, 204, ("product", [list(range(6))] * 2)),
+)
+
+
+def edge_phase(torch) -> dict:
+    """The edge shapes: ``dp_build`` and ``dp_build_batched`` (two starts)
+    bit-equal to the plain build, ``chase`` equal to the plain walk at caps
+    B+5, B, B/2, B/4, 0 and -1, in float32 and float64."""
+    from mioc_tpu_torch.ops import bellman as tb
+    from mioc_tpu_torch.ops import levels as lv
+    from mioc_tpu_torch.ops.backtrack_cuda import chase, chase_plan
+    from mioc_tpu_torch.ops.bellman_cuda import build_plan, dp_build, dp_build_batched
+
+    cases = []
+    for seed, (name, nt, B, (kind, V)) in enumerate(EDGES):
+        adm = lv.bounded_sum_levels(V, 1, 1) if kind == "bounded" else lv.product_levels(V)
+        L = adm.L
+        for dtype in (torch.float32, torch.float64):
+            item = 8 if dtype == torch.float64 else 4
+            Bx = (232448 // item - L * L) // (2 * L) - 1 if B is None else B
+            rng = np.random.default_rng(100 + seed)
+            grad = torch.as_tensor(rng.normal(size=(2, nt, adm.M)), dtype=dtype, device=DEVICE)
+            u_old = torch.as_tensor(adm.levels[rng.integers(0, L, size=(2, nt))],
+                                    dtype=dtype, device=DEVICE)
+            jump = torch.as_tensor(lv.jump_cost_table(adm.levels, 1, beta=0.05),
+                                   dtype=dtype, device=DEVICE)
+            smax = tb.max_budget_use(adm.levels)
+            stage, btilde = tb.stage_tables(grad, u_old, adm.levels, 0.05)
+            U_k, phi_k = dp_build(stage[0], btilde[0], jump, Bx, smax)
+            U_p, phi_p = tb.build_tables_plain(stage[0], btilde[0], jump, Bx, smax)
+            Ub_k, phib_k = dp_build_batched(stage, btilde, jump, Bx, smax)
+            Ub_p, phib_p = tb.build_tables_batched_plain(stage, btilde, jump, Bx, smax)
+            what = f"edge {name} L={L} B={Bx} nt={nt} {dtype}"
+            require(torch.equal(U_k, U_p) and torch.equal(bits(phi_k, torch),
+                                                          bits(phi_p, torch)),
+                    f"{what}: dp_build bit-equal")
+            require(torch.equal(Ub_k, Ub_p) and torch.equal(bits(phib_k, torch),
+                                                            bits(phib_p, torch)),
+                    f"{what}: dp_build_batched bit-equal")
+            caps = sorted({Bx + 5, Bx, Bx // 2, Bx // 4, 0, -1}, reverse=True)
+            for cap in caps:
+                require(torch.equal(chase(U_p, phi_p, btilde[0], cap),
+                                    tb.backtrack_plain(U_p, phi_p, btilde[0], cap)),
+                        f"{what}: chase equal at cap {cap}")
+            cases.append({"edge": name, "dtype": str(dtype).replace("torch.", ""),
+                          "nt": nt, "L": L, "B": Bx, "caps": caps,
+                          "build_plan": build_plan(nt, L, Bx, item)._asdict(),
+                          "chase_plan": chase_plan(nt, L, Bx, U_p.element_size())._asdict()})
+    out = {"phase": "edges", "cases": cases}
     emit(out)
     return out
 
@@ -308,6 +424,7 @@ def schedule(delta0: float, dt: float, kmax: int = 40) -> list:
 BATCHED = (
     # name, S, index into SHAPES, trial caps
     ("fishing", 32, 0, schedule(2.0, 12.0 / 1024)),
+    ("conv", 8, 1, [128 >> k for k in range(8)] + [0]),
     ("heat", 8, 2, [204 >> k for k in range(8)] + [0]),
 )
 
@@ -388,8 +505,8 @@ def batched_phase(torch, name, S, shape, trial_caps, dtype, seed):
             ("chase_trials", t_ms, t_plain, trial_bytes, trial_ops, trial_err)):
         bd_ms, bd_by = bound(nbytes, ops, dt_name)
         out[key] = {"bit_equal": True, "max_abs_err": err, "kernel_ms": ms,
-                    "plain_ms": plain, "bound_ms": bd_ms, "bound_by": bd_by,
-                    "ops": ops, "bytes": nbytes}
+                    "ns_per_step": ms * 1e6 / max(nt - 1, 1), "plain_ms": plain,
+                    "bound_ms": bd_ms, "bound_by": bd_by, "ops": ops, "bytes": nbytes}
     emit(out)
     return out
 
@@ -762,6 +879,7 @@ def main() -> int:
         for dtype in (torch.float32, torch.float64):
             phases[("batched", name, dtype)] = batched_phase(
                 torch, name, S, SHAPES[shape_i], caps, dtype, 10 + seed)
+    edge_phase(torch)
 
     host, host_launches = host_path(torch)
     single, single_launches, single_wall, single_sweeps = device_single_path(torch, host)
@@ -815,10 +933,15 @@ def main() -> int:
               "rest_s": r["wall_s_measured"] - chase_s - build_s,
               "timings_s": r["timings"],
               "f_ms_per_batch": conv["f_ms"][1], "df_ms_per_batch": conv["df_ms"][1]})
+    # The chunked chase against chase_vec, in turns within this call (chase,
+    # chase_vec, chase_vec, chase), at every shape: the same-call yardstick.
     emit({"phase": "chase_ab", "path": "cli conv nt=2048 host loop",
           "wall_s": {"chase": cli["conv_scalar"]["wall_s_measured"],
                      "chase_vec": cli["conv_vec"]["wall_s_measured"]},
-          "kernel_ms_in_turns": conv64["chase_vec"]["in_turns_with_chase"]})
+          "kernel_ms_in_turns": {
+              f"{shape} {'f64' if dtype == torch.float64 else 'f32'}":
+                  phases[(shape, dtype)]["chase_vec"]["in_turns_with_chase"]
+              for shape, *_ in SHAPES for dtype in (torch.float32, torch.float64)}})
 
     rows = []
     for key, src, tpu, launches, path, m in (
@@ -840,6 +963,7 @@ def main() -> int:
                      "replaces": tpu, "launches": launches[key], "path": path,
                      "shape": "conv f64" if key == "chase_vec" else "fishing f64",
                      "max_abs_err": m["max_abs_err"], "ms": m["kernel_ms"],
+                     "ns_per_step": m["ns_per_step"],
                      "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                      "bound_by": m["bound_by"], "library_ms": None})
     emit({"phase": "run", "seconds": time.perf_counter() - t_start})

@@ -58,7 +58,7 @@ chase_batched_kernel(const T* __restrict__ phi0,          // (S, L, B+1), stride
   const int flat = mioc::block_masked_argmin(phi0, L * B1, B1, B_new[s], sval, sidx);
   if (threadIdx.x == 0) {
     const int l = flat / B1;
-    mioc::walk(U, btilde, out, nt, L, B, l, flat - l * B1);
+    mioc::walk(U, btilde, out, 0, nt, L, B, l, flat - l * B1);
   }
 }
 

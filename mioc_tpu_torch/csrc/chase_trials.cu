@@ -67,7 +67,7 @@ chase_trials_kernel(const T* __restrict__ phi0,            // (S, L, B+1)
   const int t = threadIdx.x;
   if (t < Kt) {
     const int l = seed[t] / B1;
-    mioc::walk(U, btilde, out + (size_t)t * nt, nt, L, B, l, seed[t] - l * B1);
+    mioc::walk(U, btilde, out + (size_t)t * nt, 0, nt, L, B, l, seed[t] - l * B1);
   }
 }
 

@@ -47,28 +47,11 @@ namespace {
 
 constexpr int kThreads = 256;  // warp 0 walks, warps 1-7 stage
 
-__host__ __device__ inline size_t round16(size_t n) { return (n + 15) & ~size_t(15); }
-
 // Shared layout for chunks of K steps: two U buffers of round16(K·plane + 16)
 // bytes (the extra 16 keep a chunk's global alignment mod 16), then two b̃
 // buffers of K·L int32.
 __host__ __device__ inline size_t ubuf_bytes(int K, size_t plane_bytes) {
-  return round16((size_t)K * plane_bytes + 16);
-}
-
-// Copy n bytes from global src to shared dst, where dst ≡ src (mod 16), with
-// threads t = 0 … nthreads-1: bytes up to src's first 16-byte boundary, the
-// aligned middle as 16-byte words, then the tail.
-__device__ __forceinline__ void stage_bytes(unsigned char* dst, const unsigned char* src,
-                                            size_t n, int t, int nthreads) {
-  size_t head = (16 - ((uintptr_t)src & 15)) & 15;
-  if (head > n) head = n;
-  for (size_t i = t; i < head; i += nthreads) dst[i] = src[i];
-  const size_t nvec = (n - head) / 16;
-  const uint4* s4 = reinterpret_cast<const uint4*>(src + head);
-  uint4* d4 = reinterpret_cast<uint4*>(dst + head);
-  for (size_t i = t; i < nvec; i += nthreads) d4[i] = __ldg(s4 + i);
-  for (size_t i = head + nvec * 16 + t; i < n; i += nthreads) dst[i] = src[i];
+  return mioc::round16((size_t)K * plane_bytes + 16);
 }
 
 // Offset of chunk c's first byte inside its shared buffer: the chunk's global
@@ -87,8 +70,8 @@ __device__ __forceinline__ void stage_chunk(unsigned char* ubuf, int32_t* bbuf,
   const int k0 = c * K;
   const int kn = min(K, nsteps - k0);
   const unsigned char* src = reinterpret_cast<const unsigned char*>(U) + k0 * plane_bytes;
-  stage_bytes(ubuf + chunk_skew(U, c, K, plane_bytes), src, (size_t)kn * plane_bytes, t,
-              nthreads);
+  mioc::stage_bytes<false>(ubuf + chunk_skew(U, c, K, plane_bytes), src,
+                          (size_t)kn * plane_bytes, t, nthreads);
   const int32_t* bsrc = btilde + (size_t)k0 * L;
   for (int i = t; i < kn * L; i += nthreads) bbuf[i] = bsrc[i];
 }
@@ -132,10 +115,10 @@ chase_vec_kernel(const T* __restrict__ phi0,           // (L, B+1)
       const int k0 = c * K;
       const int kn = min(K, nsteps - k0);
       for (int kk = 0; kk < kn; ++kk) {
-        // On a valid table b stays in [0, B]; the read is clamped all the
-        // same so that a malformed table cannot read out of bounds.
-        const int bc = min(max(b, 0), B);
-        const int nl = static_cast<int>(up[((size_t)kk * L + l) * B1 + bc]);
+        // The reference's index rule (common.cuh budget_index): b itself on
+        // a walk from a finite seed.
+        const int nl =
+            static_cast<int>(up[((size_t)kk * L + l) * B1 + mioc::budget_index(b, B)]);
         b -= bp[kk * L + l];
         l = nl;
         const int p = k0 + kk + 1;

@@ -9,6 +9,7 @@
 
 #pragma once
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <limits.h>
@@ -86,24 +87,57 @@ __device__ int block_masked_argmin(const T* __restrict__ phi, int P, int B1, int
   return flat;
 }
 
-// The dependent walk of one chain, from (l, b) at step 0, reading U and b̃ of
-// one start: level_idx[k+1] = l after step k.  Looks U up BEFORE the budget
-// decrement (U is the post-shift table).  On a valid table b stays in
-// [0, B]; the read index is clamped all the same so that a malformed table
-// cannot read out of bounds.
+// The budget index of a lookup U[k, l, b], under the reference's rule (the
+// JAX scan chase indexes U_k[l, b] with a traced b): a negative b counts
+// from the end, b + (B+1), and the result is clamped to [0, B].  On every
+// table whose seed is finite b stays in [0, B] and this is b itself; it
+// differs only on a walk from a +inf seed, whose budget can fall below 0.
+__device__ __forceinline__ int budget_index(int b, int B) {
+  const int bn = b < 0 ? b + B + 1 : b;
+  return min(max(bn, 0), B);
+}
+
+// The dependent walk of one chain from (l, b) at step k0, reading U and b̃ of
+// one start: level_idx[k0] = l, level_idx[k+1] = l after step k.  Looks U up
+// BEFORE the budget decrement (U is the post-shift table), at the index of
+// budget_index().
 template <typename UT>
 __device__ __forceinline__ void walk(const UT* __restrict__ U,
                                      const int32_t* __restrict__ btilde, int32_t* out,
-                                     int nt, int L, int B, int l, int b) {
+                                     int k0, int nt, int L, int B, int l, int b) {
   const int B1 = B + 1;
-  out[0] = l;
-  for (int k = 0; k < nt - 1; ++k) {
-    const int bc = min(max(b, 0), B);
-    const int nl = static_cast<int>(U[((size_t)k * L + l) * B1 + bc]);
+  out[k0] = l;
+  for (int k = k0; k < nt - 1; ++k) {
+    const int nl = static_cast<int>(U[((size_t)k * L + l) * B1 + budget_index(b, B)]);
     b -= btilde[(size_t)k * L + l];
     l = nl;
     out[k + 1] = l;
   }
+}
+
+__host__ __device__ inline size_t round16(size_t n) { return (n + 15) & ~size_t(15); }
+
+// Copy n bytes from global src to shared dst, where dst ≡ src (mod 16), with
+// threads t = 0 … nthreads-1: bytes up to src's first 16-byte boundary, the
+// aligned middle as 16-byte words, then the tail.  With ASYNC the middle
+// goes by cp.async and the caller commits and waits
+// (__pipeline_commit(); __pipeline_wait_prior(0)) before its barrier.
+template <bool ASYNC>
+__device__ __forceinline__ void stage_bytes(unsigned char* dst, const unsigned char* src,
+                                            size_t n, int t, int nthreads) {
+  size_t head = (16 - ((uintptr_t)src & 15)) & 15;
+  if (head > n) head = n;
+  for (size_t i = t; i < head; i += nthreads) dst[i] = src[i];
+  const size_t nvec = (n - head) / 16;
+  const uint4* s4 = reinterpret_cast<const uint4*>(src + head);
+  uint4* d4 = reinterpret_cast<uint4*>(dst + head);
+  for (size_t i = t; i < nvec; i += nthreads) {
+    if (ASYNC)
+      __pipeline_memcpy_async(d4 + i, s4 + i, 16);
+    else
+      d4[i] = __ldg(s4 + i);
+  }
+  for (size_t i = head + nvec * 16 + t; i < n; i += nthreads) dst[i] = src[i];
 }
 
 }  // namespace mioc

@@ -15,12 +15,18 @@
 // start occupies one block on one SM, and each of the nt-1 steps ends in a
 // __syncthreads().  The work per step is L·(B+1)·L add-and-compare pairs on
 // shared memory (heat scale: 265 k; fishing: 1.5 k), so small planes are
-// bound by the per-step latency (barrier, global loads of stage/b̃), large
-// ones by one SM's add/compare rate — far from the card's HBM or FLOP roof,
-// which counts all 132 SMs.  The design keeps Φ double-buffered in shared
-// memory (one barrier per step), the jump table in shared memory, and
-// streams the post-shift argmin plane U_i straight to device memory, unpadded
-// (nt-1, L, B+1), int8 when L ≤ 127 as on the TPU.
+// bound by the per-step latency (the barrier and the shared-memory loads of
+// one relaxation chain), large ones by one SM's shared-memory loads — far
+// from the card's HBM or FLOP roof, which counts all 132 SMs.  The design
+// (dp_build.cuh) takes every device-memory load out of the step: the stage
+// and b̃ rows come from a ring in shared memory that one warp fills with
+// cp.async a chunk ahead; each thread's outputs are fixed before the sweep
+// (one level combination each, so no per-step divide); the jump row sits in
+// registers for L ≤ 8.  Φ stays double-buffered in shared memory (one
+// barrier per step), and the post-shift argmin plane U_i streams straight to
+// device memory, unpadded (nt-1, L, B+1), int8 when L ≤ 127 as on the TPU.
+// Splitting one start over a thread-block cluster (distributed shared
+// memory), the lever at heat scale, waits until heat has a path in the port.
 //
 // Interface: plain C, pointers as void*, launched on the caller's stream;
 // returns cudaGetLastError() after the launch (0 = launched).
@@ -29,13 +35,15 @@
 
 extern "C" {
 
-// dtype_bytes: 4 (float) or 8 (double); u_bytes: 1 (int8) or 4 (int32).
-// Returns a cudaError_t value (0 = success); -1 for an unsupported type pair.
+// dtype_bytes: 4 (float) or 8 (double); u_bytes: 1 (int8) or 4 (int32); R,
+// jsmem, tpl, K: the launch plan (mioc_tpu_torch/ops/bellman_cuda.py).
+// Returns a cudaError_t value (0 = success); -1 for an unsupported type pair
+// or plan.
 int mioc_dp_build(const void* stage, const void* btilde, const void* jump,
-                  void* U, void* phi0, int nt, int L, int B, int smax,
-                  int dtype_bytes, int u_bytes, int threads, void* stream) {
-  return mioc::dp_build_dispatch(stage, btilde, jump, U, phi0, 1, nt, L, B, smax,
-                                 dtype_bytes, u_bytes, threads, stream);
+                  void* U, void* phi0, int nt, int L, int B, int smax, int R, int jsmem,
+                  int tpl, int K, int dtype_bytes, int u_bytes, void* stream) {
+  return mioc::dp_build_dispatch(stage, btilde, jump, U, phi0, 1, nt, L, B, smax, R,
+                                 jsmem, tpl, K, dtype_bytes, u_bytes, stream);
 }
 
 }  // extern "C"

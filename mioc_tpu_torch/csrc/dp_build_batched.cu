@@ -21,8 +21,9 @@
 // (or past the blocks one SM can hold in shared memory) does it queue.  The
 // byte and operation bounds over the whole card are S times the single
 // build's, still decades below what one SM per start can reach.  Shared
-// memory per block is the single build's: the Φ double buffer and the jump
-// table; the wrapper refuses more than 232,448 bytes.
+// memory per block is the single build's plan (bellman_cuda.build_plan): the
+// Φ double buffer, the jump table where it is not in registers, and the ring
+// of staged stage/b̃ rows, at most 232,448 bytes.
 //
 // Interface: plain C, pointers as void*, launched on the caller's stream;
 // returns cudaGetLastError() after the launch (0 = launched).
@@ -31,13 +32,16 @@
 
 extern "C" {
 
-// dtype_bytes: 4 (float) or 8 (double); u_bytes: 1 (int8) or 4 (int32).
-// Returns a cudaError_t value (0 = success); -1 for an unsupported type pair.
+// dtype_bytes: 4 (float) or 8 (double); u_bytes: 1 (int8) or 4 (int32); R,
+// jsmem, tpl, K: the launch plan (mioc_tpu_torch/ops/bellman_cuda.py).
+// Returns a cudaError_t value (0 = success); -1 for an unsupported type pair
+// or plan.
 int mioc_dp_build_batched(const void* stage, const void* btilde, const void* jump,
                           void* U, void* phi0, int S, int nt, int L, int B, int smax,
-                          int dtype_bytes, int u_bytes, int threads, void* stream) {
-  return mioc::dp_build_dispatch(stage, btilde, jump, U, phi0, S, nt, L, B, smax,
-                                 dtype_bytes, u_bytes, threads, stream);
+                          int R, int jsmem, int tpl, int K, int dtype_bytes, int u_bytes,
+                          void* stream) {
+  return mioc::dp_build_dispatch(stage, btilde, jump, U, phi0, S, nt, L, B, smax, R,
+                                 jsmem, tpl, K, dtype_bytes, u_bytes, stream);
 }
 
 }  // extern "C"

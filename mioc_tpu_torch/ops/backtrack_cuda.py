@@ -1,7 +1,8 @@
 """Wrappers of the chase CUDA kernels.
 
 * :func:`chase` — ``csrc/chase.cu``, counterpart of
-  ``mioc_tpu.ops.backtrack_pallas._bt_kernel``: one start, one cap;
+  ``mioc_tpu.ops.backtrack_pallas._bt_kernel``: one start, one cap, walked
+  as a chunked chase of state maps over many blocks (:func:`chase_plan`);
 * :func:`chase_vec` — ``csrc/chase_vec.cu``, counterpart of
   ``_bt_kernel_vec`` (``MIOC_CHASE=vec``): the same function as
   :func:`chase`, walked by one warp with broadcast state on U planes staged
@@ -25,24 +26,31 @@ kernel's one-hot ``_levels_at`` worked around a TPU gather).
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
-__all__ = ["chase", "chase_vec", "vec_chunk", "chase_batched", "chase_trials",
-           "MAX_TRIALS"]
+__all__ = ["chase", "chase_plan", "ChasePlan", "chase_vec", "vec_chunk",
+           "chase_batched", "chase_trials", "MAX_TRIALS"]
 
 MAX_TRIALS = 128  # caps per start the trial-wave kernel takes
+CHASE_CHUNKS = 32  # chunks the chunked chase aims at
+CHASE_SMEM_BYTES = 200 * 1024  # dynamic shared memory of one staged chunk
 VEC_SMEM_BYTES = 160 * 1024  # dynamic shared memory chase_vec may stage into
 VEC_MAX_CHUNK = 64  # time steps per staged chunk of chase_vec
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
-def _fn(lib_name: str, symbol: str, argtypes):
+@functools.lru_cache(maxsize=None)
+def _fn(lib_name: str, symbol: str, argtypes: tuple):
+    """The C entry point, typed once (the chases launch thousands of times
+    in one solve)."""
     from ._kernels import library
 
     fn = getattr(library(lib_name), symbol)
-    fn.argtypes = argtypes
+    fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int
     return fn
 
@@ -90,17 +98,59 @@ def _single(U, phi0, btilde, B_new):
     return nt, L, B, None, int(B_new)
 
 
+class ChasePlan(NamedTuple):
+    """Plan of the chunked chase (``csrc/chase.cu``): ``C`` chunks of ``T``
+    steps (``C·T ≥ nt-1``), U planes ``staged`` in shared memory or read in
+    place, ``smem`` dynamic shared bytes of one chunk, ``scratch`` int32
+    entries (the state maps ``E (C, P)``, the entry states, a flag)."""
+
+    C: int
+    T: int
+    staged: bool
+    smem: int
+    scratch: int
+
+
+def chase_plan(nt: int, L: int, B: int, u_bytes: int) -> ChasePlan:
+    """Chunks of the chunked chase for ``(nt, L, B)`` and U of ``u_bytes``:
+    about :data:`CHASE_CHUNKS` chunks, with T shrunk until T planes and T b̃
+    rows fit :data:`CHASE_SMEM_BYTES` as ``chunk_smem`` in ``csrc/chase.cu``
+    lays them out (round16(T·plane + 16) + 4·T·L bytes); where not even one
+    plane fits, the planes are read in place.  No shape is refused."""
+    P = L * (B + 1)
+    steps = nt - 1
+    plane = P * u_bytes
+
+    def smem(t: int) -> int:
+        return _round16(t * plane + 16) + 4 * t * L
+
+    if steps <= 0:
+        return ChasePlan(0, 1, False, 0, 1)
+    T = -(-steps // CHASE_CHUNKS)
+    staged = smem(1) <= CHASE_SMEM_BYTES
+    if staged:
+        T = min(T, max(1, (CHASE_SMEM_BYTES - 32) // (plane + 4 * L)))
+        while smem(T) > CHASE_SMEM_BYTES:
+            T -= 1
+    C = -(-steps // T)
+    return ChasePlan(C, T, staged, smem(T) if staged else 0, C * P + C + 1)
+
+
 def chase(U, phi0, btilde, B_new):
-    """Launch the chase of one start; ``B_new`` is an int or a 0-d int32
-    tensor on the card.  Returns ``level_idx (nt,)`` int32 on the card."""
+    """Launch the chunked chase of one start; ``B_new`` is an int or a 0-d
+    int32 tensor on the card.  Returns ``level_idx (nt,)`` int32 on the
+    card."""
     nt, L, B, B_dev, B_int = _single(U, phi0, btilde, B_new)
+    plan = chase_plan(nt, L, B, U.element_size())
     out = torch.empty(nt, dtype=torch.int32, device=phi0.device)
-    fn = _fn("chase", "mioc_chase", [_P] * 5 + [_I] * 6 + [_P])
+    scratch = torch.empty(plan.scratch, dtype=torch.int32, device=phi0.device)
+    fn = _fn("chase", "mioc_chase", tuple([_P] * 6 + [_I] * 9 + [_P]))
     with torch.cuda.device(phi0.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(phi0.data_ptr(), btilde.data_ptr(), U.data_ptr(),
                  None if B_dev is None else B_dev.data_ptr(), out.data_ptr(),
-                 nt, L, B, B_int, phi0.element_size(), U.element_size(), stream)
+                 scratch.data_ptr(), nt, L, B, B_int, plan.T, plan.C, int(plan.staged),
+                 phi0.element_size(), U.element_size(), stream)
     if err != 0:
         raise RuntimeError(f"chase launch failed: CUDA error {err}")
     chase.launches += 1
@@ -135,7 +185,7 @@ def chase_vec(U, phi0, btilde, B_new):
     nt, L, B, B_dev, B_int = _single(U, phi0, btilde, B_new)
     K = vec_chunk(nt, L, B, U.element_size())
     out = torch.empty(nt, dtype=torch.int32, device=phi0.device)
-    fn = _fn("chase_vec", "mioc_chase_vec", [_P] * 5 + [_I] * 7 + [_P])
+    fn = _fn("chase_vec", "mioc_chase_vec", tuple([_P] * 5 + [_I] * 7 + [_P]))
     with torch.cuda.device(phi0.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(phi0.data_ptr(), btilde.data_ptr(), U.data_ptr(),
@@ -175,7 +225,7 @@ def chase_batched(U, phi0, btilde, B_new):
     caps = _caps(B_new, (S,), phi0.device)
     out = torch.empty((S, nt), dtype=torch.int32, device=phi0.device)
     fn = _fn("chase_batched", "mioc_chase_batched",
-             [_P] * 5 + [_I] * 4 + [_LL] * 3 + [_I] * 2 + [_P])
+             tuple([_P] * 5 + [_I] * 4 + [_LL] * 3 + [_I] * 2 + [_P]))
     with torch.cuda.device(phi0.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(phi0.data_ptr(), btilde.data_ptr(), U.data_ptr(), caps.data_ptr(),
@@ -210,7 +260,7 @@ def chase_trials(U, phi0, btilde, B_trials):
                          f"start, got {Kt}")
     caps = caps.contiguous()
     out = torch.empty((S, Kt, nt), dtype=torch.int32, device=phi0.device)
-    fn = _fn("chase_trials", "mioc_chase_trials", [_P] * 5 + [_I] * 7 + [_P])
+    fn = _fn("chase_trials", "mioc_chase_trials", tuple([_P] * 5 + [_I] * 7 + [_P]))
     with torch.cuda.device(phi0.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(phi0.data_ptr(), btilde.data_ptr(), U.data_ptr(), caps.data_ptr(),

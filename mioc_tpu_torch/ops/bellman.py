@@ -35,7 +35,8 @@ bit-identical to the reference's):
   ``b̃ > smax`` hold +inf in Φ and 0 in ``U``;
 * the chase seed is the row-major flat argmin of ``Φ_0`` masked to
   ``b ≤ B_new`` — Julia's column-major order: smallest ``l``, then ``b``;
-* each chase step looks ``U`` up BEFORE decrementing the budget;
+* each chase step looks ``U`` up BEFORE decrementing the budget, and a
+  budget below 0 indexes ``U`` as a traced JAX index does (:func:`budget_index`);
 * ``B_new`` is a plain runtime argument: a halved trust region re-chases the
   same tables without a rebuild.
 
@@ -60,6 +61,7 @@ __all__ = [
     "build_tables_batched_plain",
     "backtrack",
     "backtrack_plain",
+    "budget_index",
     "chase_kernel_name",
     "backtrack_batched",
     "backtrack_batched_plain",
@@ -185,6 +187,17 @@ def build_tables_batched(stage, btilde, jump_cost, B: int, smax: int = None):
     return dp_build_batched(stage, btilde, jump_cost, B, B if smax is None else smax)
 
 
+def budget_index(b, B: int):
+    """The budget index of a chase lookup ``U[k, l, b]`` under the JAX scan
+    chase's rule (``mioc_tpu.ops.bellman.backtrack`` indexes ``U_k[l, b]``
+    with a traced ``b``): a negative ``b`` counts from the end, ``b + B + 1``,
+    then the index is clamped to ``[0, B]``.  On a walk from a finite seed
+    ``b`` stays in ``[0, B]`` and this is ``b``; from a +inf seed (every
+    masked ``phi0`` entry +inf) the budget can fall below 0, even below
+    ``-(B+1)``.  ``csrc/common.cuh::budget_index`` is the kernels' copy."""
+    return np.clip(np.where(b < 0, b + B + 1, b), 0, B)
+
+
 def _walk_plain(U, phi0, btilde, table, caps):
     """Chase ``N = len(table)`` chains on host copies of S table sets: chain
     ``n`` walks table set ``table[n]`` from the seed under cap ``caps[n]``.
@@ -207,7 +220,7 @@ def _walk_plain(U, phi0, btilde, table, caps):
     out = np.empty((len(t), nt), dtype=np.int32)
     out[:, 0] = l
     for k in range(nt - 1):
-        nl = U_h[t, k, l, b].astype(np.int64)
+        nl = U_h[t, k, l, budget_index(b, B1 - 1)].astype(np.int64)
         b = b - bt_h[t, k, l]  # decrement AFTER lookup (HelpFunctions.jl:115-122)
         l = nl
         out[:, k + 1] = l

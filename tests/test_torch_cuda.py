@@ -299,3 +299,128 @@ def test_conv_rows_bit_equal_on_card(cuda_device):
                            f1[:S].view(torch.int64))
         assert torch.equal(obj._adjoint_batch(X[:S], None)[0].view(torch.int64),
                            d1[:S].view(torch.int64))
+
+
+# ------------------------------------------------- redesigned build and chase
+
+
+def _nonadmissible_first_row(adm, nt, B, dtype, dev, seed=0):
+    """Tables whose u_old row 0 lies more than smax from every level in each
+    component: every b̃[0, l] exceeds smax, so phi0 is +inf everywhere, the
+    seed is (0, 0) and the walk's budget falls below -(B+1)."""
+    rng = np.random.default_rng(seed)
+    smax = tb.max_budget_use(adm.levels)
+    grad = torch.as_tensor(rng.normal(size=(nt, adm.M)), dtype=dtype, device=dev)
+    u_old = torch.as_tensor(adm.levels[rng.integers(0, adm.L, size=nt)], dtype=dtype,
+                            device=dev)
+    u_old[0] = float(np.abs(adm.levels).max() + smax + 1)
+    jump = torch.as_tensor(jump_cost_table(adm.levels, 1, beta=0.05), dtype=dtype,
+                           device=dev)
+    stage, btilde = tb.stage_tables(grad, u_old, adm.levels, 0.05)
+    return stage, btilde, jump, smax
+
+
+def _all_chases_equal_plain(U, phi0, btilde, caps, dev):
+    from mioc_tpu_torch.ops.backtrack_cuda import (chase, chase_batched, chase_trials,
+                                                   chase_vec)
+
+    for cap in caps:
+        want = tb.backtrack_plain(U, phi0, btilde, cap)
+        dev_cap = torch.tensor(cap, dtype=torch.int32, device=dev)
+        assert torch.equal(chase(U, phi0, btilde, cap), want), cap
+        assert torch.equal(chase(U, phi0, btilde, dev_cap), want), cap
+        assert torch.equal(chase_vec(U, phi0, btilde, cap), want), cap
+        caps_t = torch.tensor([cap, cap], dtype=torch.int32, device=dev)
+        assert torch.equal(chase_batched(U.expand(2, -1, -1, -1), phi0.expand(2, -1, -1),
+                                         btilde.expand(2, -1, -1), caps_t),
+                           want.expand(2, -1)), cap
+        assert torch.equal(chase_trials(U[None].contiguous(), phi0[None].contiguous(),
+                                        btilde[None].contiguous(), caps_t[None]),
+                           want.expand(1, 2, -1)), cap
+
+
+@pytest.mark.parametrize("name,levels,nt,B", CASES + [
+    ("heat", lambda: product_levels([list(range(6))] * 2), 300, 204)])
+def test_infeasible_cap_all_chases_equal_plain(cuda_device, name, levels, nt, B):
+    """A cap of -1 masks every seed: the seed is (0, 0) and the walk leaves
+    [0, B]; all four chase kernels follow the plain walk's index rule."""
+    adm = levels()
+    stage, btilde, jump, smax = _tables(adm, nt, B, torch.float64, cuda_device)
+    U, phi0 = tb.build_tables(stage, btilde, jump, B, smax)
+    _all_chases_equal_plain(U, phi0, btilde, (-1, -7), cuda_device)
+
+
+@pytest.mark.parametrize("name,levels,nt,B", CASES)
+def test_infinite_seed_all_chases_equal_plain(cuda_device, name, levels, nt, B):
+    adm = levels()
+    stage, btilde, jump, smax = _nonadmissible_first_row(adm, nt, B, torch.float64,
+                                                         cuda_device)
+    U, phi0 = tb.build_tables(stage, btilde, jump, B, smax)
+    assert not torch.isfinite(phi0).any()
+    _all_chases_equal_plain(U, phi0, btilde, (B, B // 2, 0), cuda_device)
+
+
+BUILD_EDGES = [
+    # name, levels, nt, B: nt 1 and 2, L = 1, B = 0, rows read in place (L ≤ 2
+    # at the largest B the first kernel took, B = None), the jump table through the read-only cache (L = 36 at
+    # B = 384), a multi-chunk ring (heat scale), the int32 U route.
+    ("nt1", lambda: bounded_sum_levels([[0, 1]] * 3, 1, 1), 1, 9),
+    ("nt2", lambda: product_levels([[-2, -1, 0, 1, 2]]), 2, 4),
+    ("L1", lambda: product_levels([[0]]), 50, 7),
+    ("B0", lambda: bounded_sum_levels([[0, 1]] * 3, 1, 1), 60, 0),
+    ("L1-edge", lambda: product_levels([[0]]), 5, None),
+    ("L2-edge", lambda: product_levels([[0, 1]]), 5, None),
+    ("L36-jump-global", lambda: product_levels([list(range(6))] * 2), 60, 384),
+    ("heat-ring", lambda: product_levels([list(range(6))] * 2), 500, 204),
+    ("L130", lambda: product_levels([list(range(13)), list(range(10))]), 25, 30),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name,levels,nt,B", BUILD_EDGES)
+def test_build_edges_bit_equal_plain(cuda_device, name, levels, nt, B, dtype):
+    from mioc_tpu_torch.ops.bellman_cuda import build_plan, dp_build, dp_build_batched
+
+    adm = levels()
+    item = 8 if dtype == torch.float64 else 4
+    if B is None:  # the largest B with (2·L·(B+1) + L²)·item ≤ 232448
+        B = (232448 // item - adm.L ** 2) // (2 * adm.L) - 1
+    stage, btilde, jump, smax = _tables(adm, nt, B, dtype, cuda_device)
+    if name.endswith("-edge"):
+        assert build_plan(nt, adm.L, B, item).R == 0
+    U_k, phi_k = dp_build(stage, btilde, jump, B, smax)
+    U_p, phi_p = tb.build_tables_plain(stage, btilde, jump, B, smax)
+    assert torch.equal(U_k, U_p) and torch.equal(phi_k, phi_p)
+    Ub, phib = dp_build_batched(stage[None].expand(2, -1, -1).contiguous(),
+                                btilde[None].expand(2, -1, -1).contiguous(), jump, B, smax)
+    assert torch.equal(Ub[1], U_p) and torch.equal(phib[1], phi_p)
+
+
+CHASE_EDGES = [
+    # name, levels, nt, B: nt 1 and 2 (one chunk), chunks of one step, nt-1
+    # not a multiple of T, L = 1, B = 0, planes read in place (int32 U of
+    # 209 kB), more chunks (149) than the card holds blocks at once.
+    ("nt1", lambda: bounded_sum_levels([[0, 1]] * 3, 1, 1), 1, 9),
+    ("nt2", lambda: product_levels([[-2, -1, 0, 1, 2]]), 2, 4),
+    ("one-step-chunks", lambda: product_levels([[-2, -1, 0, 1, 2]]), 30, 6),
+    ("ragged", lambda: bounded_sum_levels([[0, 1]] * 3, 1, 1), 1000, 40),
+    ("L1", lambda: product_levels([[0]]), 70, 5),
+    ("B0", lambda: bounded_sum_levels([[0, 1]] * 3, 1, 1), 70, 0),
+    ("in-place", lambda: product_levels([list(range(13)), list(range(10))]), 12, 400),
+    ("many-chunks", lambda: product_levels([list(range(6))] * 2), 4000, 204),
+]
+
+
+@pytest.mark.parametrize("name,levels,nt,B", CHASE_EDGES)
+def test_chase_edges_equal_plain(cuda_device, name, levels, nt, B):
+    from mioc_tpu_torch.ops.backtrack_cuda import chase, chase_plan
+
+    adm = levels()
+    stage, btilde, jump, smax = _tables(adm, nt, B, torch.float64, cuda_device)
+    # The plain build: "in-place" is larger than one build block takes.
+    U, phi0 = tb.build_tables_plain(stage, btilde, jump, B, smax)
+    plan = chase_plan(nt, adm.L, B, U.element_size())
+    assert plan.staged == (name not in ("in-place", "nt1"))
+    for cap in (B + 5, B, B // 2, B // 4, 0, -1):
+        want = tb.backtrack_plain(U, phi0, btilde, cap)
+        assert torch.equal(chase(U, phi0, btilde, cap), want), cap
