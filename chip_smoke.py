@@ -25,9 +25,14 @@ Run from the root of a checkout.  It builds the CUDA kernels from
    (S=32 starts), conv (S=8) and heat scale (S=8), float32 and float64:
    tables bit-equal, per-start caps and Kt=9 trial caps (the fishing halving
    schedule 170 … 0; B, B/2, … 0 at conv and heat scale) giving equal
-   indices; then the edge shapes (nt 1 and 2, L = 1, B = 0, chase chunks of
-   one step, build rows read in place at the shared-memory limit, 149 chase
-   chunks) for ``dp_build``, ``dp_build_batched`` and ``chase``;
+   indices; ``chase_batched`` on the stride-0 trial wave of a single solve
+   (K=9 caps against one table set: the fishing preset's halving schedule,
+   and the conv device loop's 128 … 0), equal to the plain walk and timed in
+   turns with the plain version and with ``chase``; then the edge shapes (nt
+   1 and 2, L = 1, B = 0, chase chunks of one step, build rows read in place
+   at the shared-memory limit, 149 chase chunks) for ``dp_build``,
+   ``dp_build_batched``, ``chase``, ``chase_vec`` and ``chase_batched`` (one
+   set of maps, and a set per row);
 3. drives the port's paths as a user would, each with every launch count set
    to 0 just before it and read just after, on the card at float64 with the
    fishing preset ``LVMObj(nt=1024)``, ``TRMParameters(beta=1e-4,
@@ -44,7 +49,7 @@ Run from the root of a checkout.  It builds the CUDA kernels from
       sequential inner loop: every start converged, admissible, equal to the
       JAX package's result (iterations and inner steps equal, J to rtol
       1e-12; constants below), start 0 equal to (b); through
-      ``dp_build_batched`` and ``chase_batched``;
+      ``dp_build_batched`` and 387 ``chase_batched`` launches;
    d. the same with ``speculative=True``: every field equal to (c), through
       ``dp_build_batched`` and ``chase_trials``.
    No path may call a plain DP version on the card;
@@ -130,6 +135,9 @@ REF32_J = (0.9304798828368771, 0.9356193732626554, 0.933153304738131,
            0.9360519109334589, 0.9307827378230108, 0.9351341998846148,
            0.9368280889757825, 0.9342508091655368)
 N_STARTS = 32
+# The sequential multistart's batched chases: one per step of its inner
+# loop, over the 32 starts above (chip_smoke.py, PR 4).
+REF32_SEQ_CHASES = 387
 PRESET = dict(beta=1e-4, delta0=2.0, p=math.inf)
 
 # The JAX package's CLI on the CPU at float64, one line per run below (the
@@ -207,7 +215,7 @@ def bits(t, torch):
 
 def kernel_phase(torch, name, nt, B, level_spec, preset, dtype, seed):
     from mioc_tpu_torch.ops import levels as lv
-    from mioc_tpu_torch.ops.backtrack_cuda import chase, chase_plan, chase_vec, vec_chunk
+    from mioc_tpu_torch.ops.backtrack_cuda import chase, chase_plan, chase_vec, cluster_plan
     from mioc_tpu_torch.ops.bellman import (backtrack_plain, build_tables_plain,
                                             max_budget_use, stage_tables)
     from mioc_tpu_torch.ops.bellman_cuda import build_plan, dp_build
@@ -290,10 +298,11 @@ def kernel_phase(torch, name, nt, B, level_spec, preset, dtype, seed):
         torch, lambda: backtrack_plain(U_k, phi_k, btilde, B),
         lambda: chase_vec(U_k, phi_k, btilde, B), 3, 10)
     # The A/B of the two chases, in turns within one call: chase, chase_vec,
-    # chase_vec, chase.
+    # chase_vec, chase; 30 calls a turn, as a call's host side varies by tens
+    # of µs from one call to the next.
     ab_vec, ab_chase = in_turns(
         torch, lambda: chase(U_k, phi_k, btilde, B),
-        lambda: chase_vec(U_k, phi_k, btilde, B), 10, 10)
+        lambda: chase_vec(U_k, phi_k, btilde, B), 30, 30)
     bb_ms, bb_by = bound(build_bytes, build_ops, dt_name)
     cb_ms, cb_by = bound(chase_bytes, chase_ops, dt_name)
     steps = max(nt - 1, 1)
@@ -314,7 +323,7 @@ def kernel_phase(torch, name, nt, B, level_spec, preset, dtype, seed):
         "chase_vec": {"equal_at": budgets, "max_abs_err": vec_err, "kernel_ms": v_ms,
                       "ns_per_step": v_ms * 1e6 / steps, "plain_ms": v_plain,
                       "bound_ms": cb_ms, "bound_by": cb_by,
-                      "chunk": vec_chunk(nt, L, B, us),
+                      "plan": cluster_plan(U_k, phi_k)._asdict(),
                       "in_turns_with_chase": {"chase_vec_ms": ab_vec,
                                               "chase_ms": ab_chase}},
     }
@@ -362,11 +371,14 @@ EDGES = (
 
 def edge_phase(torch) -> dict:
     """The edge shapes: ``dp_build`` and ``dp_build_batched`` (two starts)
-    bit-equal to the plain build, ``chase`` equal to the plain walk at caps
-    B+5, B, B/2, B/4, 0 and -1, in float32 and float64."""
+    bit-equal to the plain build; ``chase``, ``chase_vec`` and
+    ``chase_batched`` (the caps as rows, on one set of maps at stride 0 and
+    on a set per row) equal to the plain walk at caps B+5, B, B/2, B/4, 0
+    and -1, in float32 and float64."""
     from mioc_tpu_torch.ops import bellman as tb
     from mioc_tpu_torch.ops import levels as lv
-    from mioc_tpu_torch.ops.backtrack_cuda import chase, chase_plan
+    from mioc_tpu_torch.ops.backtrack_cuda import (chase, chase_batched, chase_plan,
+                                                   chase_vec, cluster_plan)
     from mioc_tpu_torch.ops.bellman_cuda import build_plan, dp_build, dp_build_batched
 
     cases = []
@@ -396,14 +408,28 @@ def edge_phase(torch) -> dict:
                                                             bits(phib_p, torch)),
                     f"{what}: dp_build_batched bit-equal")
             caps = sorted({Bx + 5, Bx, Bx // 2, Bx // 4, 0, -1}, reverse=True)
-            for cap in caps:
-                require(torch.equal(chase(U_p, phi_p, btilde[0], cap),
-                                    tb.backtrack_plain(U_p, phi_p, btilde[0], cap)),
+            want = torch.stack([tb.backtrack_plain(U_p, phi_p, btilde[0], c) for c in caps])
+            for k, cap in enumerate(caps):
+                require(torch.equal(chase(U_p, phi_p, btilde[0], cap), want[k]),
                         f"{what}: chase equal at cap {cap}")
+                require(torch.equal(chase_vec(U_p, phi_p, btilde[0], cap), want[k]),
+                        f"{what}: chase_vec equal at cap {cap}")
+            K = len(caps)
+            caps_t = torch.tensor(caps, dtype=torch.int32, device=DEVICE)
+            wave = (U_p.expand(K, -1, -1, -1), phi_p.expand(K, -1, -1),
+                    btilde[0].expand(K, -1, -1))
+            require(torch.equal(chase_batched(*wave, caps_t), want),
+                    f"{what}: chase_batched on one set of maps equal at caps {caps}")
+            require(torch.equal(chase_batched(*(t.contiguous() for t in wave), caps_t), want),
+                    f"{what}: chase_batched on a set per row equal at caps {caps}")
+            us = U_p.element_size()
             cases.append({"edge": name, "dtype": str(dtype).replace("torch.", ""),
                           "nt": nt, "L": L, "B": Bx, "caps": caps,
                           "build_plan": build_plan(nt, L, Bx, item)._asdict(),
-                          "chase_plan": chase_plan(nt, L, Bx, U_p.element_size())._asdict()})
+                          "chase_plan": chase_plan(nt, L, Bx, us)._asdict(),
+                          "batched_plans": [chase_plan(nt, L, Bx, us, 1, K)._asdict(),
+                                            chase_plan(nt, L, Bx, us, K, K)._asdict()],
+                          "vec_plan": cluster_plan(U_p, phi_p)._asdict()})
     out = {"phase": "edges", "cases": cases}
     emit(out)
     return out
@@ -507,6 +533,69 @@ def batched_phase(torch, name, S, shape, trial_caps, dtype, seed):
         out[key] = {"bit_equal": True, "max_abs_err": err, "kernel_ms": ms,
                     "ns_per_step": ms * 1e6 / max(nt - 1, 1), "plain_ms": plain,
                     "bound_ms": bd_ms, "bound_by": bd_by, "ops": ops, "bytes": nbytes}
+    emit(out)
+    return out
+
+
+WAVES = (
+    # name, index into SHAPES, caps: the trial wave of the fishing preset's
+    # single device solve (its halving schedule, K=9) and of the conv device
+    # loop (B, B/2, …, 1, 0 at the CLI's δ₀ = 0.125, K=9)
+    ("fishing", 0, schedule(2.0, 12.0 / 1024)),
+    ("conv", 1, [128 >> k for k in range(8)] + [0]),
+)
+
+
+def wave_phase(torch, name, shape, caps, dtype, seed):
+    """``chase_batched`` on the stride-0 wave of a single solve: K caps as
+    rows against one table set expanded along the start axis (one set of
+    state maps), equal to the plain walk of each cap; timed in turns with
+    the plain batched chase, and with one ``chase`` call at the same shape
+    (chase, wave, wave, chase)."""
+    from mioc_tpu_torch.ops import bellman as tb
+    from mioc_tpu_torch.ops import levels as lv
+    from mioc_tpu_torch.ops.backtrack_cuda import chase, chase_batched, chase_plan
+    from mioc_tpu_torch.ops.bellman_cuda import dp_build
+
+    _, nt, B, (kind, V), (p, beta, tau) = shape
+    adm = lv.bounded_sum_levels(V, 1, 1) if kind == "bounded" else lv.product_levels(V)
+    L = adm.L
+    rng = np.random.default_rng(seed)
+    grad = torch.as_tensor(rng.normal(size=(nt, adm.M)), dtype=dtype, device=DEVICE)
+    u_old = torch.as_tensor(adm.levels[rng.integers(0, L, size=nt)], dtype=dtype,
+                            device=DEVICE)
+    jump = torch.as_tensor(lv.jump_cost_table(adm.levels, p, beta=beta), dtype=dtype,
+                           device=DEVICE)
+    smax = tb.max_budget_use(adm.levels)
+    stage, btilde = tb.stage_tables(grad, u_old, adm.levels, tau)
+    U, phi0 = dp_build(stage, btilde, jump, B, smax)
+    K = len(caps)
+    wave = (U.expand(K, -1, -1, -1), phi0.expand(K, -1, -1), btilde.expand(K, -1, -1))
+    caps_t = torch.tensor(caps, dtype=torch.int32, device=DEVICE)
+    got = chase_batched(*wave, caps_t)
+    want = torch.stack([tb.backtrack_plain(U, phi0, btilde, c) for c in caps])
+    err = int((got.long() - want.long()).abs().max())
+    require(err == 0, f"{name} wave {dtype}: chase_batched equal at caps {caps}")
+    ms, plain = in_turns(torch, lambda: tb.backtrack_batched_plain(*wave, caps_t.cpu()),
+                         lambda: chase_batched(*wave, caps_t), 3, 10)
+    ab_wave, ab_chase = in_turns(torch, lambda: chase(U, phi0, btilde, caps[0]),
+                                 lambda: chase_batched(*wave, caps_t), 30, 30)
+    dt_name = "float64" if dtype == torch.float64 else "float32"
+    ds, us = phi0.element_size(), U.element_size()
+    # phi0 once (its K masked argmins), one U and one b̃ entry per step and
+    # row, K index rows and caps.
+    nbytes = L * (B + 1) * ds + K * ((nt - 1) * (us + 4) + nt * 4 + 4)
+    ops = K * (L * (B + 1) + (nt - 1))
+    bd_ms, bd_by = bound(nbytes, ops, dt_name)
+    out = {"phase": "wave_kernels", "shape": name, "dtype": dt_name, "K": K, "nt": nt,
+           "L": L, "B": B, "caps": caps,
+           "chase_batched": {"bit_equal": True, "max_abs_err": err, "kernel_ms": ms,
+                             "ns_per_step": ms * 1e6 / max(nt - 1, 1), "plain_ms": plain,
+                             "bound_ms": bd_ms, "bound_by": bd_by, "ops": ops,
+                             "bytes": nbytes,
+                             "plan": chase_plan(nt, L, B, us, 1, K)._asdict(),
+                             "in_turns_with_chase": {"wave_ms": ab_wave,
+                                                     "chase_ms": ab_chase}}}
     emit(out)
     return out
 
@@ -665,6 +754,9 @@ def multistart_path(torch, x0s, speculative: bool):
             f"{name}: chases through {wave}: {launches}")
     if speculative:
         require(launches["chase_batched"] == 0, f"{name}: no batched chase")
+    else:
+        require(launches["chase_batched"] == REF32_SEQ_CHASES,
+                f"{name}: {REF32_SEQ_CHASES} chase_batched launches: {launches}")
     return res, launches, wall, sweeps
 
 
@@ -879,6 +971,10 @@ def main() -> int:
         for dtype in (torch.float32, torch.float64):
             phases[("batched", name, dtype)] = batched_phase(
                 torch, name, S, SHAPES[shape_i], caps, dtype, 10 + seed)
+    for seed, (name, shape_i, caps) in enumerate(WAVES):
+        for dtype in (torch.float32, torch.float64):
+            phases[("wave", name, dtype)] = wave_phase(torch, name, SHAPES[shape_i], caps,
+                                                       dtype, 20 + seed)
     edge_phase(torch)
 
     host, host_launches = host_path(torch)

@@ -19,12 +19,15 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["SOURCES", "NVCC_FLAGS", "build_all", "build_log", "library"]
+__all__ = ["SOURCES", "PROBES", "NVCC_FLAGS", "build_all", "build_log", "library"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = ("dp_build", "chase", "dp_build_batched", "chase_batched", "chase_trials",
            "chase_vec")
+# Sources that are no kernel of any path: the empty kernel with which
+# profile_kernels.py times the host side of a launch.
+PROBES = ("launch_probe",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

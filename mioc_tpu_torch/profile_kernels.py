@@ -18,9 +18,26 @@ kernel alone (:func:`device_ms`, a ``torch.profiler`` trace) under:
   barrier replaced by a warp sync.  The variants compute wrong tables and
   are timed only: they show what a step costs beyond its relaxation.
 
+* the cluster chase ``chase_vec`` at cluster sizes 8 and 16
+  (``backtrack_cuda.VEC_CLUSTERS``) and sub-chunks of about 8, 16 or 32
+  steps (``VEC_SUBCHUNK_STEPS``), each equal to the plain walk;
+
+and at fishing S=32 (float64):
+
+* ``chase_batched`` over 32 table sets with 8, 16 or 32 chunks per set
+  (``backtrack_cuda.CHASE_TASKS``), and on the stride-0 trial wave (one set,
+  K=9 caps; fishing and conv) with 8, 16 or 32 chunks (``CHASE_CHUNKS``),
+  each equal to the plain walk;
+* ``dp_build_batched`` and ``chase_trials`` (Kt=9).
+
 It also samples the SM clock (``nvidia-smi --query-gpu=clocks.sm``) while
 ``dp_build`` runs back to back for a second at each shape: a kernel that
-keeps one SM busy may not lift the card to its full clock.
+keeps one SM busy may not lift the card to its full clock.  First of all,
+before any profiler trace (after one, every launch of the process is
+slower), it times the host side of a call (:func:`host_side`): an empty
+kernel (``csrc/launch_probe.cu``) launched through the same ctypes route as
+an ordinary, a cooperative and a cluster launch, the wrappers' allocations,
+and whole calls of the chase wrappers.
 
 The first line is the card's name and power limit (``nvidia-smi``).
 """
@@ -50,6 +67,205 @@ BODY_VARIANTS = {
     "warp_sync": [("__syncthreads();  // Φ_i complete", "__syncwarp();  // Φ_i complete")],
 }
 BODY_VARIANTS["no_store_no_relax"] = BODY_VARIANTS["no_U_store"] + BODY_VARIANTS["no_relax"]
+
+
+CHASE_VARIANTS = {
+    # name: (source, library, [(text, its replacement)]): the redesigned
+    # chases without one of their phases' work, to see what each costs.
+    # They compute wrong paths and are timed only.
+    "vec_no_maps": ("chase_vec.cu", "chase_vec", [
+        ("      for (int kk = 0; kk < kn; ++kk) {\n        const UT* upk",
+         "      for (int kk = 0; kk < 0; ++kk) {\n        const UT* upk")]),
+    "vec_no_compose": ("chase_vec.cu", "chase_vec", [
+        ("for (int w = 0; w < W && x != mioc::kSentinel; ++w) {",
+         "for (int w = 0; w < 0; ++w) {")]),
+    "vec_no_chain_lookups": ("chase_vec.cu", "chase_vec", [
+        ("        e = Eg != nullptr ? __ldcg(Eg + (size_t)j * P + s) : Ec[s];",
+         "        e = s;")]),
+    "vec_no_rewalk": ("chase_vec.cu", "chase_vec", [
+        ("      for (int kk = 0; kk < kn; ++kk) {\n        const int nl",
+         "      for (int kk = 0; kk < 0; ++kk) {\n        const int nl")]),
+    # Not a phase removed: timestamps of CTA 0's phases (clock64, cycles
+    # from its first instruction) into out[1:9], and each CTA's first and
+    # last %globaltimer (ns, low 31 bits) into out[9:9+2N] (timeline()).
+    "vec_timeline": ("chase_vec.cu", "chase_vec", [
+        ("  const int steps = nt - 1;\n",
+         "  const int steps = nt - 1;\n  long long tk[8] = {clock64(), 0, 0, 0, 0, 0, 0, 0};\n"
+         "  __shared__ unsigned long long gt[2];\n  if (threadIdx.x == 0) asm volatile("
+         "\"mov.u64 %0, %%globaltimer;\" : \"=l\"(gt[0]));\n"),
+        ("      seeded = true;\n", "      seeded = true;\n      tk[1] = clock64();\n"),
+        ("    held = q;\n    int32_t* E =", "    held = q;\n    tk[2] = clock64();\n    int32_t* E ="),
+        ("    if (W > 1) {\n      __syncthreads();\n",
+         "    if (W > 1) {\n      __syncthreads();\n      tk[3] = clock64();\n"),
+        ("    __syncthreads();  // the planes are free for the next round\n",
+         "    __syncthreads();  // the planes are free for the next round\n    tk[4] = clock64();\n"),
+        ("  cluster.sync();  // the shares, the maps and the empty mailboxes are in place\n",
+         "  cluster.sync();\n  tk[5] = clock64();\n"),
+        ("  __syncthreads();\n\n  // Phase 3", "  tk[6] = clock64();\n  __syncthreads();\n"
+         "  tk[7] = clock64();\n\n  // Phase 3"),
+        ("""    __syncthreads();  // the planes are free for the next slice
+  }
+}""", """    __syncthreads();  // the planes are free for the next slice
+  }
+  const long long tend = clock64();
+  if (threadIdx.x == 0) asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(gt[1]));
+  cluster.sync();
+  if (rank == 0 && threadIdx.x == 0) {
+    for (int i = 1; i < 8; ++i) out[i] = (int)(tk[i] - tk[0]);
+    out[8] = (int)(tend - tk[0]);
+    for (int r = 0; r < N; ++r) {
+      for (int h = 0; h < 2; ++h) {
+        int v;
+        asm volatile("ld.shared::cluster.u32 %0, [%1];" : "=r"(v)
+                     : "r"(remote(&gt[h], r)) : "memory");
+        out[9 + 2 * r + h] = v & 0x7fffffff;
+      }
+    }
+  }
+  cluster.sync();
+}""")]),
+    "chunked_no_maps": ("chase_chunked.cuh", "chase_batched", [
+        ("""      for (int kk = 0; kk < v.kn; ++kk) {
+        const int nl = static_cast<int>(v.up[(size_t)kk * P + l * B1 + b]);
+        b -= v.bp[kk * L + l];
+        l = nl;
+        if (b < 0) break;
+      }""", "")]),
+    "chunked_no_chain_reads": ("chase_chunked.cuh", "chase_batched", [
+        ("const int e = __ldcg(E + (size_t)c * P + s);", "const int e = s;")]),
+    "chunked_no_rewalk": ("chase_chunked.cuh", "chase_batched", [
+        ("""      for (int kk = 0; kk < v.kn; ++kk) {
+        const int nl = static_cast<int>(v.up[(size_t)kk * P + l * B1 + b]);
+        b -= v.bp[kk * L + l];
+        l = nl;
+        o[kk] = l;""", """      for (int kk = 0; kk < 0; ++kk) {
+        const int nl = static_cast<int>(v.up[(size_t)kk * P + l * B1 + b]);
+        b -= v.bp[kk * L + l];
+        l = nl;
+        o[kk] = l;""")]),
+}
+
+
+def _chase_variants() -> dict:
+    """Build every CHASE_VARIANTS library from an edited copy of csrc/ (one
+    nvcc each, all at once); returns ``{name: ctypes.CDLL}``."""
+    from .ops import _kernels
+
+    procs = {}
+    for name, (source, lib_name, edits) in CHASE_VARIANTS.items():
+        out = _kernels.BUILD_DIR / "variants" / name
+        shutil.rmtree(out, ignore_errors=True)
+        shutil.copytree(_kernels.CSRC, out)
+        text = (out / source).read_text()
+        for old, new in edits:
+            if old not in text:
+                raise RuntimeError(f"variant {name}: {old!r} is not in {source}")
+            text = text.replace(old, new)
+        (out / source).write_text(text)
+        lib = out / f"lib{lib_name}.so"
+        procs[name] = (lib, subprocess.Popen(
+            [_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-I", str(out), "-o", str(lib),
+             str(out / f"{lib_name}.cu")], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    libs = {}
+    for name, (lib, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
+        libs[name] = ctypes.CDLL(str(lib))
+    return libs
+
+
+def timeline(lib, U, phi0, btilde, B) -> dict:
+    """One call of the ``vec_timeline`` variant of chase_vec: CTA 0's phase
+    ends in µs from its first instruction (its seed share, slice staged,
+    maps, slice map, the cluster.sync, its chain hop posted, the barrier
+    before its re-walk, end), and each CTA's start and end in µs from the
+    first CTA's start (globaltimer)."""
+    from .ops import backtrack_cuda as kc
+
+    fn = lib.mioc_chase_vec
+    fn.argtypes = list(kc._VEC_ARGS)
+    fn.restype = ctypes.c_int
+    real_fn = kc._fn
+    kc._fn = lambda lib_name, symbol, argtypes: (
+        fn if symbol == "mioc_chase_vec" else real_fn(lib_name, symbol, argtypes))
+    try:
+        for _ in range(3):
+            out = kc.chase_vec(U, phi0, btilde, B)
+        plan = kc.cluster_plan(U, phi0)
+    finally:
+        kc._fn = real_fn
+    o = out.cpu().tolist()
+    mhz = 1980.0  # the SM clock under load (profile_kernels, sm_clock_mhz)
+    starts = [o[9 + 2 * r] for r in range(plan.N)]
+    t0 = min(starts)
+    return {"cta0_us": dict(zip(("seed_share", "staged", "maps", "slice_map", "sync",
+                                 "chain_posted", "barrier", "end"),
+                                [round(c / mhz, 3) for c in o[1:9]])),
+            "cta_start_end_us": [(round((o[9 + 2 * r] - t0) / 1e3, 3),
+                                  round((o[10 + 2 * r] - t0) / 1e3, 3))
+                                 for r in range(plan.N)]}
+
+
+def phase_costs() -> dict:
+    """Device ms of chase_vec (conv and fishing), chase_batched at fishing
+    S=32 and on the fishing wave, each as built and without one phase's
+    work (CHASE_VARIANTS), launched through the same wrappers."""
+    from .ops import backtrack_cuda as kc
+    from .ops import bellman as tb
+
+    libs = _chase_variants()
+    real_fn = kc._fn
+
+    def run_with(name, call, kernel):
+        if name is None:
+            return device_ms(call, kernel)
+        lib = libs[name]
+
+        def fn(lib_name, symbol, argtypes):
+            if symbol not in ("mioc_chase_vec", "mioc_chase_batched"):
+                return real_fn(lib_name, symbol, argtypes)
+            f = getattr(lib, symbol)
+            f.argtypes = list(argtypes)
+            f.restype = ctypes.c_int
+            return f
+
+        kc._fn = fn
+        try:
+            return device_ms(call, kernel)
+        finally:
+            kc._fn = real_fn
+
+    out = {}
+    for name, nt, B, spec, preset in SHAPES[:2]:
+        stage, btilde, jump, smax = _tables(nt, B, spec, preset, torch.float64)
+        U, phi0 = tb.build_tables(stage, btilde, jump, B, smax)
+        K = 9
+        wave = (U.expand(K, -1, -1, -1), phi0.expand(K, -1, -1), btilde.expand(K, -1, -1))
+        caps = torch.tensor([B >> k for k in range(8)] + [0], dtype=torch.int32,
+                            device="cuda")
+        rows = {"vec_timeline": timeline(libs["vec_timeline"], U, phi0, btilde, B)}
+        for v in (None, *(k for k in CHASE_VARIANTS if k != "vec_timeline")):
+            key = v or "as_built"
+            if v is None or v.startswith("vec"):
+                rows.setdefault("chase_vec", {})[key] = run_with(
+                    v, lambda: kc.chase_vec(U, phi0, btilde, B), "chase_vec_kernel")
+            if v is None or v.startswith("chunked"):
+                rows.setdefault("chase_batched_wave", {})[key] = run_with(
+                    v, lambda: kc.chase_batched(*wave, caps), "chunked_chase_kernel")
+        out[name] = rows
+    S = 32
+    _, nt, B, spec, preset = SHAPES[0]
+    st, bt, jump, smax = _tables(nt, B, spec, preset, torch.float64)
+    stage = st[None].repeat(S, 1, 1)
+    btilde = bt[None].repeat(S, 1, 1)
+    U, phi0 = tb.build_tables_batched(stage, btilde, jump, B, smax)
+    caps = torch.full((S,), B, dtype=torch.int32, device="cuda")
+    out["fishing_S32"] = {(v or "as_built"): run_with(
+        v, lambda: kc.chase_batched(U, phi0, btilde, caps), "chunked_chase_kernel")
+        for v in (None, *CHASE_VARIANTS) if v is None or v.startswith("chunked")}
+    return out
 
 
 def device_ms(fn, kernel: str, reps: int = 20):
@@ -142,6 +358,178 @@ def _body_variant(name: str):
     return fn
 
 
+def _host_us(fn, n: int = 400) -> float:
+    """Host time per call (µs) of ``n`` calls of ``fn`` back to back, with no
+    synchronisation inside the loop: what the host spends to issue a call."""
+    import time
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+
+def host_side() -> dict:
+    """The host side of a call, at the fishing shape (float64): an empty
+    kernel through ctypes as an ordinary launch (1 block), a cooperative
+    launch (32 blocks of 1024 threads, as the chase's grid) and a cluster
+    launch (8 CTAs of 1024); two ``torch.empty`` of the chase's sizes; and
+    the pieces of a wrapper call (the table checks, the plan, the current
+    stream, a device switch); and whole wrapper calls of ``chase``,
+    ``chase_vec`` and ``chase_batched`` (the K=9 wave).  µs per call, host
+    clock."""
+    from .ops import backtrack_cuda as kc
+    from .ops import bellman as tb
+    from .ops._kernels import library
+
+    fn = library("launch_probe").mioc_launch_probe
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def probe(kind, blocks, threads):
+        def call():
+            err = fn(kind, blocks, threads, stream)
+            if err != 0:
+                raise RuntimeError(f"launch_probe kind {kind}: CUDA error {err}")
+        return call
+
+    _, nt, B, spec, preset = SHAPES[0]
+    stage, btilde, jump, smax = _tables(nt, B, spec, preset, torch.float64)
+    U, phi0 = tb.build_tables(stage, btilde, jump, B, smax)
+    plan = kc.chase_plan(nt, U.shape[1], B, 1)
+    K = 9
+    wave = (U.expand(K, -1, -1, -1), phi0.expand(K, -1, -1), btilde.expand(K, -1, -1))
+    caps = torch.tensor([B >> k for k in range(8)] + [0], dtype=torch.int32, device="cuda")
+
+    def device_switch():
+        with torch.cuda.device(phi0.device):
+            pass
+
+    out = {}
+    for _ in range(2):  # in turns: the second pass is the one reported
+        out = {
+            "empty_ordinary": _host_us(probe(0, 1, 32)),
+            "empty_cooperative": _host_us(probe(1, 32, 1024)),
+            "empty_cluster_8": _host_us(probe(2, 8, 1024)),
+            "two_torch_empty": _host_us(lambda: (
+                torch.empty(nt, dtype=torch.int32, device="cuda"),
+                torch.empty(plan.scratch, dtype=torch.int32, device="cuda"))),
+            "check_tables": _host_us(lambda: kc._check_tables(U, phi0, btilde, False)),
+            "check_batched_strides": _host_us(lambda: kc.table_sets(*wave)),
+            "chase_plan": _host_us(lambda: kc.chase_plan(nt, U.shape[1], B, 1)),
+            "current_stream": _host_us(lambda: torch.cuda.current_stream().cuda_stream),
+            "current_device": _host_us(torch.cuda.current_device),
+            "data_ptr_x6": _host_us(lambda: [t.data_ptr() for t in (U, phi0, btilde) * 2]),
+            "device_switch": _host_us(device_switch),
+            "chase": _host_us(lambda: kc.chase(U, phi0, btilde, B)),
+            "chase_vec": _host_us(lambda: kc.chase_vec(U, phi0, btilde, B)),
+            "chase_batched_wave": _host_us(lambda: kc.chase_batched(*wave, caps)),
+        }
+    return out
+
+
+def batched_section() -> dict:
+    """chase_batched at fishing S=32 (G = 32) under 8, 16 and 32 chunks per
+    set, the stride-0 wave (G = 1, K=9) at fishing and conv under 8, 16 and
+    32 chunks, dp_build_batched and chase_trials; device ms, float64."""
+    from .ops import backtrack_cuda as kc
+    from .ops import bellman as tb
+    from .ops import bellman_cuda as bc
+    from .ops import levels as lv
+
+    S = 32
+    _, nt, B, (kind, V), (p, beta, tau) = SHAPES[0]
+    adm = lv.bounded_sum_levels(V, 1, 1)
+    rng = np.random.default_rng(10)
+    grad = torch.as_tensor(rng.normal(size=(S, nt, adm.M)), device="cuda")
+    u_old = torch.as_tensor(adm.levels[rng.integers(0, adm.L, size=(S, nt))], device="cuda")
+    jump = torch.as_tensor(lv.jump_cost_table(adm.levels, p, beta=beta), device="cuda")
+    smax = tb.max_budget_use(adm.levels)
+    stage, btilde = tb.stage_tables(grad, u_old, adm.levels, tau)
+    U, phi0 = bc.dp_build_batched(stage, btilde, jump, B, smax)
+    wave_caps = [170, 85, 42, 21, 10, 5, 2, 1, 0]
+    caps = torch.tensor([wave_caps[s % 9] for s in range(S)], dtype=torch.int32,
+                        device="cuda")
+    trials = torch.tensor([wave_caps] * S, dtype=torch.int32, device="cuda")
+    want = tb.backtrack_batched_plain(U, phi0, btilde, caps.cpu())
+    out = {"S": S, "dp_build_batched_ms": device_ms(
+        lambda: bc.dp_build_batched(stage, btilde, jump, B, smax), "dp_build_kernel"),
+           "chase_trials_ms": device_ms(lambda: kc.chase_trials(U, phi0, btilde, trials),
+                                        "chase_trials_kernel"),
+           "chase_batched_sets": [], "chase_batched_wave": {}}
+    saved = kc.CHASE_TASKS, kc.CHASE_CHUNKS
+    try:
+        for chunks in (8, 16, 32):
+            kc.CHASE_TASKS = chunks * S
+            if not torch.equal(kc.chase_batched(U, phi0, btilde, caps), want):
+                raise RuntimeError(f"chase_batched with {chunks} chunks per set differs")
+            plan = kc.chase_plan(nt, adm.L, B, 1, sets=S, rows=S)
+            out["chase_batched_sets"].append({"chunks": chunks, "C": plan.C, "T": plan.T,
+                                              "device_ms": device_ms(
+                lambda: kc.chase_batched(U, phi0, btilde, caps), "chunked_chase_kernel")})
+        kc.CHASE_TASKS = saved[0]
+        for name, nt_, B_, spec, preset in SHAPES[:2]:
+            st1, bt1, jp1, sm1 = _tables(nt_, B_, spec, preset, torch.float64)
+            U1, phi1 = bc.dp_build(st1, bt1, jp1, B_, sm1)
+            K = 9
+            wc = [B_ >> k for k in range(8)] + [0] if name == "conv" else wave_caps
+            wave = (U1.expand(K, -1, -1, -1), phi1.expand(K, -1, -1), bt1.expand(K, -1, -1))
+            ct = torch.tensor(wc, dtype=torch.int32, device="cuda")
+            w_want = torch.stack([tb.backtrack_plain(U1, phi1, bt1, c) for c in wc])
+            rows = []
+            for chunks in (8, 16, 32):
+                kc.CHASE_CHUNKS = chunks
+                if not torch.equal(kc.chase_batched(*wave, ct), w_want):
+                    raise RuntimeError(f"{name} wave with {chunks} chunks differs")
+                plan = kc.chase_plan(nt_, U1.shape[1], B_, 1, sets=1, rows=K)
+                rows.append({"chunks": chunks, "C": plan.C, "T": plan.T,
+                             "device_ms": device_ms(lambda: kc.chase_batched(*wave, ct),
+                                                    "chunked_chase_kernel")})
+            kc.CHASE_CHUNKS = saved[1]
+            rows.append({"chase_device_ms": device_ms(
+                lambda: kc.chase(U1, phi1, bt1, wc[0]), "chunked_chase_kernel")})
+            out["chase_batched_wave"][name] = rows
+    finally:
+        kc.CHASE_TASKS, kc.CHASE_CHUNKS = saved
+    return out
+
+
+def vec_section(U, phi0, btilde, B) -> list:
+    """chase_vec's device ms under each cluster size and sub-chunk length,
+    each equal to the plain walk at caps B, B/2, 0, -1."""
+    from .ops import backtrack_cuda as kc
+    from .ops import bellman as tb
+
+    rows = []
+    saved = kc.VEC_CLUSTERS, kc.VEC_SUBCHUNK_STEPS
+    try:
+        for cluster in (8, 16):
+            for sub in (8, 16, 32):
+                kc.VEC_CLUSTERS, kc.VEC_SUBCHUNK_STEPS = (cluster,), sub
+                try:
+                    plan = kc.cluster_plan(U, phi0)
+                except RuntimeError as e:  # a cluster size this card does not schedule
+                    rows.append({"cluster": cluster, "subchunk_steps": sub,
+                                 "refused": str(e)})
+                    continue
+                for cap in (B, B // 2, 0, -1):
+                    if not torch.equal(kc.chase_vec(U, phi0, btilde, cap),
+                                       tb.backtrack_plain(U, phi0, btilde, cap)):
+                        raise RuntimeError(f"chase_vec {cluster}/{sub} differs at {cap}")
+                rows.append({"cluster": cluster, "subchunk_steps": sub,
+                             "plan": plan._asdict(),
+                             "device_ms": device_ms(lambda: kc.chase_vec(U, phi0, btilde, B),
+                                                    "chase_vec_kernel")})
+    finally:
+        kc.VEC_CLUSTERS, kc.VEC_SUBCHUNK_STEPS = saved
+    return rows
+
+
 def main() -> int:
     from .ops import backtrack_cuda as kc
     from .ops import bellman as tb
@@ -155,7 +543,14 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    _kernels.build_all(("dp_build", "chase"))
+    _kernels.build_all(_kernels.SOURCES + _kernels.PROBES)
+    host = host_side()
+    probe = _kernels.library("launch_probe").mioc_launch_probe
+    host["empty_device_ms"] = device_ms(
+        lambda: probe(1, 32, 1024, torch.cuda.current_stream().cuda_stream), "empty_kernel")
+    print(json.dumps({"host_side_us": host, "nvidia_smi": smi}), flush=True)
+    print(json.dumps({"batched": batched_section(), "nvidia_smi": smi}), flush=True)
+    print(json.dumps({"phase_costs": phase_costs(), "nvidia_smi": smi}), flush=True)
     bodies = {name: _body_variant(name) for name in BODY_VARIANTS}
     for name, nt, B, spec, preset in SHAPES:
         stage, btilde, jump, smax = _tables(nt, B, spec, preset, torch.float64)
@@ -211,11 +606,13 @@ def main() -> int:
                                    "chase_kernel")})
         finally:
             kc.CHASE_CHUNKS = saved
+        vec = vec_section(U_p, phi_p, btilde, B)
         clock = sm_clock_mhz(lambda: bc.dp_build(stage, btilde, jump, B, smax))
         print(json.dumps({"shape": name, "nt": nt, "L": L, "B": B, "dtype": "float64",
                           "sm_clock_mhz_during_dp_build": clock,
                           "dp_build_plans": plans, "dp_build_body_ms": body,
-                          "chase_chunks": chunks, "nvidia_smi": smi}), flush=True)
+                          "chase_chunks": chunks, "chase_vec": vec,
+                          "nvidia_smi": smi}), flush=True)
     return 0
 
 

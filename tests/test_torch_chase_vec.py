@@ -77,18 +77,3 @@ def test_mioc_chase_is_read_at_every_call(monkeypatch):
     assert tb.chase_kernel_name() == "chase_vec"
     monkeypatch.setenv("MIOC_CHASE", "scalar")
     assert tb.chase_kernel_name() == "chase"
-
-
-def test_vec_chunk_fits_shared_memory():
-    """The staged chunk of every bundled shape fits the shared-memory budget;
-    a plane too large for it raises instead of launching."""
-    from mioc_tpu_torch.ops.backtrack_cuda import VEC_SMEM_BYTES, vec_chunk
-
-    for nt, L, B, ub, want in ((1024, 3, 170, 1, 64), (2048, 5, 128, 1, 64),
-                               (1024, 36, 204, 1, 10), (40, 130, 30, 4, 4), (1, 5, 9, 1, 1)):
-        K = vec_chunk(nt, L, B, ub)
-        assert K == want
-        plane = L * (B + 1) * ub
-        assert 2 * (K * plane + 32) + 2 * K * L * 4 <= VEC_SMEM_BYTES
-    with pytest.raises(ValueError, match="shared memory"):
-        vec_chunk(100, 400, 100, 4)

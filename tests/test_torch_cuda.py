@@ -244,15 +244,15 @@ VEC_CASES = CASES + [
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("name,levels,nt,B", VEC_CASES)
 def test_chase_vec_equals_plain(cuda_device, name, levels, nt, B, dtype):
-    """The warp-broadcast chase equals the plain chase: int8 and int32 U
-    (L130), chunk edges (nt-1 not a multiple of the staged chunk or of 32),
-    int and device-tensor caps, a cap past B and a cap of 0."""
-    from mioc_tpu_torch.ops.backtrack_cuda import chase_vec, vec_chunk
+    """The cluster chase equals the plain chase: int8 and int32 U (L130),
+    sub-chunk edges (nt-1 not a multiple of the slices or of 32), the maps in
+    device memory in rounds (heat), int and device-tensor caps, a cap past B
+    and a cap of 0."""
+    from mioc_tpu_torch.ops.backtrack_cuda import chase_vec
 
     adm = levels()
     stage, btilde, jump, smax = _tables(adm, nt, B, dtype, cuda_device)
     U, phi0 = tb.build_tables_plain(stage, btilde, jump, B, smax)
-    assert vec_chunk(nt, adm.L, B, U.element_size()) >= 1
     for cap in (B + 5, B, B // 2, 1, 0):
         want = tb.backtrack_plain(U, phi0, btilde, cap)
         assert torch.equal(chase_vec(U, phi0, btilde, cap), want), cap
@@ -424,3 +424,122 @@ def test_chase_edges_equal_plain(cuda_device, name, levels, nt, B):
     for cap in (B + 5, B, B // 2, B // 4, 0, -1):
         want = tb.backtrack_plain(U, phi0, btilde, cap)
         assert torch.equal(chase(U, phi0, btilde, cap), want), cap
+
+
+# ------------------------------------- redesigned batched chase and vec chase
+
+CHIP_SHAPES = [
+    # name, levels, nt, B, trial caps: chip_smoke.py's three kernel shapes
+    ("fishing", lambda: bounded_sum_levels([[0, 1]] * 3, 1, 1), 1024, 170,
+     [170, 85, 42, 21, 10, 5, 2, 1, 0]),
+    ("conv", lambda: product_levels([[-2, -1, 0, 1, 2]]), 2048, 128,
+     [128 >> k for k in range(8)] + [0]),
+    ("heat", lambda: product_levels([list(range(6))] * 2), 1024, 204,
+     [204 >> k for k in range(8)] + [0]),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name,levels,nt,B,wave", CHIP_SHAPES)
+def test_redesigned_chases_at_chip_shapes(cuda_device, name, levels, nt, B, wave, dtype):
+    """chase_batched over 8 table sets (G = R) and on the stride-0 wave of
+    one set (G = 1, K caps), and chase_vec at every cap of the wave, equal
+    to the plain walk."""
+    from mioc_tpu_torch.ops.backtrack_cuda import chase_batched, chase_vec
+
+    adm = levels()
+    S = 8
+    stage, btilde, jump, smax = _batched_tables(adm, S, nt, B, dtype, cuda_device, seed=3)
+    U, phi0 = tb.build_tables_batched_plain(stage, btilde, jump, B, smax)
+    caps = torch.tensor([wave[s % len(wave)] for s in range(S)], dtype=torch.int32,
+                        device=cuda_device)
+    assert torch.equal(chase_batched(U, phi0, btilde, caps),
+                       tb.backtrack_batched_plain(U, phi0, btilde, caps.cpu()))
+    K = len(wave)
+    ks = torch.tensor(wave, dtype=torch.int32, device=cuda_device)
+    got = chase_batched(U[0].expand(K, -1, -1, -1), phi0[0].expand(K, -1, -1),
+                        btilde[0].expand(K, -1, -1), ks)
+    for k, cap in enumerate(wave):
+        want = tb.backtrack_plain(U[0], phi0[0], btilde[0], cap)
+        assert torch.equal(got[k], want), cap
+        assert torch.equal(chase_vec(U[0], phi0[0], btilde[0], cap), want), cap
+
+
+def test_batched_chase_one_start_and_many_rows(cuda_device):
+    """S = 1, and the 288 rows of a 32-start wave of 9 caps materialised (G =
+    R = 288, more rows than the grid has blocks), against the plain walk."""
+    from mioc_tpu_torch.ops.backtrack_cuda import chase_batched, chase_plan
+
+    adm = bounded_sum_levels([[0, 1]] * 3, 1, 1)
+    stage, btilde, jump, smax = _batched_tables(adm, 32, 400, 60, torch.float64,
+                                                cuda_device, seed=5)
+    U, phi0 = tb.build_tables_batched_plain(stage, btilde, jump, 60, smax)
+    one = torch.tensor([37], dtype=torch.int32, device=cuda_device)
+    assert torch.equal(chase_batched(U[:1], phi0[:1], btilde[:1], one),
+                       tb.backtrack_batched_plain(U[:1], phi0[:1], btilde[:1], [37]))
+    K = 9
+    caps = torch.tensor([60 >> k for k in range(8)] + [0], dtype=torch.int32,
+                        device=cuda_device).repeat(32)
+    tables = [t[:, None].expand(32, K, *t.shape[1:]).reshape(32 * K, *t.shape[1:])
+              for t in (U, phi0, btilde)]
+    assert chase_plan(400, 3, 60, 1, sets=288, rows=288).C >= 1
+    assert torch.equal(chase_batched(*tables, caps),
+                       tb.backtrack_batched_plain(*tables, caps.cpu()))
+
+
+@pytest.mark.parametrize("far", [False, True])
+def test_batched_chase_strides_and_sentinels(cuda_device, far):
+    """Caps -1 and past B, +inf seeds (far), stride 0 on U and b̃ together
+    (one set of maps) and on phi0 alone (a set per row)."""
+    from mioc_tpu_torch.ops.backtrack_cuda import chase_batched
+
+    adm = product_levels([[-2, -1, 0, 1, 2]])
+    make = _nonadmissible_first_row if far else _tables
+    stage, btilde, jump, smax = make(adm, 300, 20, torch.float64, cuda_device)
+    U, phi0 = tb.build_tables(stage, btilde, jump, 20, smax)
+    caps = torch.tensor([20, -1, 26, 0, 7, -3], dtype=torch.int32, device=cuda_device)
+    want = torch.stack([tb.backtrack_plain(U, phi0, btilde, int(c)) for c in caps])
+    S = len(caps)
+    shared = chase_batched(U.expand(S, -1, -1, -1), phi0.expand(S, -1, -1),
+                           btilde.expand(S, -1, -1), caps)
+    phi_only = chase_batched(U.expand(S, -1, -1, -1).contiguous(), phi0.expand(S, -1, -1),
+                             btilde.expand(S, -1, -1).contiguous(), caps)
+    assert torch.equal(shared, want) and torch.equal(phi_only, want)
+
+
+@pytest.mark.parametrize("cluster", [8, 16])
+@pytest.mark.parametrize("subchunk_steps", [5, 16, 256])
+def test_chase_vec_cluster_sizes(cuda_device, monkeypatch, cluster, subchunk_steps):
+    """Each cluster size, with many sub-chunks (as many as fit), 8 and one
+    per slice, at the conv shape, equal to the plain walk (caps B, B/2, 0,
+    -1)."""
+    from mioc_tpu_torch.ops import backtrack_cuda as kc
+
+    monkeypatch.setattr(kc, "VEC_CLUSTERS", (cluster,))
+    monkeypatch.setattr(kc, "VEC_SUBCHUNK_STEPS", subchunk_steps)
+    adm = product_levels([[-2, -1, 0, 1, 2]])
+    stage, btilde, jump, smax = _tables(adm, 2048, 128, torch.float64, cuda_device)
+    U, phi0 = tb.build_tables(stage, btilde, jump, 128, smax)
+    for cap in (128, 64, 0, -1):
+        assert torch.equal(kc.chase_vec(U, phi0, btilde, cap),
+                           tb.backtrack_plain(U, phi0, btilde, cap)), cap
+
+
+@pytest.mark.parametrize("name,levels,nt,B", CHASE_EDGES)
+def test_redesigned_chases_edges_equal_plain(cuda_device, name, levels, nt, B):
+    """The edge shapes for chase_vec and for chase_batched with one set of
+    maps (stride 0) and with a set per row."""
+    from mioc_tpu_torch.ops.backtrack_cuda import chase_batched, chase_vec
+
+    adm = levels()
+    stage, btilde, jump, smax = _tables(adm, nt, B, torch.float64, cuda_device)
+    U, phi0 = tb.build_tables_plain(stage, btilde, jump, B, smax)
+    caps = (B + 5, B, B // 2, B // 4, 0, -1)
+    want = torch.stack([tb.backtrack_plain(U, phi0, btilde, c) for c in caps])
+    caps_t = torch.tensor(caps, dtype=torch.int32, device=cuda_device)
+    S = len(caps)
+    expanded = (U.expand(S, -1, -1, -1), phi0.expand(S, -1, -1), btilde.expand(S, -1, -1))
+    assert torch.equal(chase_batched(*expanded, caps_t), want)
+    assert torch.equal(chase_batched(*(t.contiguous() for t in expanded), caps_t), want)
+    for k, cap in enumerate(caps):
+        assert torch.equal(chase_vec(U, phi0, btilde, cap), want[k]), cap

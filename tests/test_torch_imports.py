@@ -52,10 +52,12 @@ def test_port_modules_found():
 
 def test_every_kernel_has_its_source():
     """Each kernel library the port builds has its CUDA source in csrc/, and
-    every source there is built."""
+    every source there is built: a kernel of the paths, or a probe."""
     from mioc_tpu_torch.ops import _kernels
 
-    assert set(_kernels.SOURCES) == {p.stem for p in (PORT / "csrc").glob("*.cu")}
+    assert not set(_kernels.SOURCES) & set(_kernels.PROBES)
+    assert set(_kernels.SOURCES) | set(_kernels.PROBES) == {
+        p.stem for p in (PORT / "csrc").glob("*.cu")}
     assert {"dp_build", "chase", "dp_build_batched", "chase_batched",
             "chase_trials", "chase_vec"} <= set(_kernels.SOURCES)
 
