@@ -7,10 +7,11 @@ On a machine with one NVIDIA card.  TREE is the root of a checkout (for
 example a ``git archive`` of the parent commit unpacked into a git-ignored
 directory, or ``.``).  The script puts TREE first on the import path, builds
 its kernels, and runs that tree's own ``chip_smoke.py`` kernel phases: the
-single kernels at the three DP shapes and the batched kernels at fishing S=32,
-conv S=8 and heat S=8, float32 and float64, each held equal to its plain
-version and timed in turns with it (CUDA-event medians per call, the host side
-of a call included).  It then times, with any tree's wrappers, the stride-0
+single kernels (``dp_build``, ``chase``, ``chase_vec``) at the three DP shapes
+and the batched kernels (``dp_build_batched`` under its plan, ``chase_batched``,
+``chase_trials``) at fishing S=32, conv S=8 and heat S=8, float32 and float64,
+each held equal to its plain version and timed in turns with it (CUDA-event
+medians per call, the host side of a call included).  It then times, with any tree's wrappers, the stride-0
 trial wave of ``chase_batched`` (K=9 caps against one table set) in turns with
 one ``chase`` call, and ``chase_vec`` in turns with ``chase``, at fishing and
 conv.  One JSON object per line.

@@ -23,16 +23,20 @@ Run from the root of a checkout.  It builds the CUDA kernels from
 2. holds the batched kernels (``dp_build_batched``, ``chase_batched``,
    ``chase_trials``) against their plain versions the same way, at fishing
    (S=32 starts), conv (S=8) and heat scale (S=8), float32 and float64:
-   tables bit-equal, per-start caps and Kt=9 trial caps (the fishing halving
-   schedule 170 … 0; B, B/2, … 0 at conv and heat scale) giving equal
-   indices; ``chase_batched`` on the stride-0 trial wave of a single solve
-   (K=9 caps against one table set: the fishing preset's halving schedule,
-   and the conv device loop's 128 … 0), equal to the plain walk and timed in
-   turns with the plain version and with ``chase``; then the edge shapes (nt
-   1 and 2, L = 1, B = 0, chase chunks of one step, build rows read in place
-   at the shared-memory limit, 149 chase chunks) for ``dp_build``,
-   ``dp_build_batched``, ``chase``, ``chase_vec`` and ``chase_batched`` (one
-   set of maps, and a set per row);
+   tables bit-equal under the cluster size the plan takes (printed with the
+   plan), per-start caps and Kt=9 trial caps (the fishing halving schedule
+   170 … 0; B, B/2, … 0 at conv and heat scale) giving equal indices, and a
+   trial wave of caps -1, 0, B, past B and between, in another order for
+   each start, on tables whose every other start has a +inf seed;
+   ``chase_batched`` on the stride-0 trial wave of a single solve (K=9 caps
+   against one table set: the fishing preset's halving schedule, and the
+   conv device loop's 128 … 0), equal to the plain walk and timed in turns
+   with the plain version and with ``chase``; then the edge shapes (nt 1 and
+   2, L = 1, B = 0, chase chunks of one step, build rows read in place at the
+   shared-memory limit, 149 chase chunks) for ``dp_build``,
+   ``dp_build_batched`` (one block per start, and the largest cluster the
+   plan takes, forced), ``chase``, ``chase_vec``, ``chase_batched`` (one set
+   of maps, and a set per row) and ``chase_trials`` (two starts of the caps);
 3. drives the port's paths as a user would, each with every launch count set
    to 0 just before it and read just after, on the card at float64 with the
    fishing preset ``LVMObj(nt=1024)``, ``TRMParameters(beta=1e-4,
@@ -370,16 +374,19 @@ EDGES = (
 
 
 def edge_phase(torch) -> dict:
-    """The edge shapes: ``dp_build`` and ``dp_build_batched`` (two starts)
-    bit-equal to the plain build; ``chase``, ``chase_vec`` and
-    ``chase_batched`` (the caps as rows, on one set of maps at stride 0 and
-    on a set per row) equal to the plain walk at caps B+5, B, B/2, B/4, 0
-    and -1, in float32 and float64."""
+    """The edge shapes: ``dp_build`` and ``dp_build_batched`` (two starts,
+    at one block per start and at the largest cluster the plan takes there,
+    min(16, B+1), forced) bit-equal to the plain build; ``chase``,
+    ``chase_vec``, ``chase_batched`` (the caps as rows, on one set of maps
+    at stride 0 and on a set per row) and ``chase_trials`` (the caps, in
+    two orders, against the two starts' tables) equal to the plain walk at
+    caps B+5, B, B/2, B/4, 0 and -1, in float32 and float64."""
     from mioc_tpu_torch.ops import bellman as tb
     from mioc_tpu_torch.ops import levels as lv
     from mioc_tpu_torch.ops.backtrack_cuda import (chase, chase_batched, chase_plan,
-                                                   chase_vec, cluster_plan)
-    from mioc_tpu_torch.ops.bellman_cuda import build_plan, dp_build, dp_build_batched
+                                                   chase_trials, chase_vec, cluster_plan)
+    from mioc_tpu_torch.ops.bellman_cuda import (build_plan, cluster_build_plan, dp_build,
+                                                 dp_build_batched)
 
     cases = []
     for seed, (name, nt, B, (kind, V)) in enumerate(EDGES):
@@ -398,15 +405,18 @@ def edge_phase(torch) -> dict:
             stage, btilde = tb.stage_tables(grad, u_old, adm.levels, 0.05)
             U_k, phi_k = dp_build(stage[0], btilde[0], jump, Bx, smax)
             U_p, phi_p = tb.build_tables_plain(stage[0], btilde[0], jump, Bx, smax)
-            Ub_k, phib_k = dp_build_batched(stage, btilde, jump, Bx, smax)
             Ub_p, phib_p = tb.build_tables_batched_plain(stage, btilde, jump, Bx, smax)
             what = f"edge {name} L={L} B={Bx} nt={nt} {dtype}"
             require(torch.equal(U_k, U_p) and torch.equal(bits(phi_k, torch),
                                                           bits(phi_p, torch)),
                     f"{what}: dp_build bit-equal")
-            require(torch.equal(Ub_k, Ub_p) and torch.equal(bits(phib_k, torch),
-                                                            bits(phib_p, torch)),
-                    f"{what}: dp_build_batched bit-equal")
+            build_plans = {}
+            for C in sorted({1, min(16, Bx + 1)}):
+                Ub_k, phib_k = dp_build_batched(stage, btilde, jump, Bx, smax, clusters=C)
+                require(torch.equal(Ub_k, Ub_p) and torch.equal(bits(phib_k, torch),
+                                                                bits(phib_p, torch)),
+                        f"{what}: dp_build_batched bit-equal at {C} CTAs per start")
+                build_plans[C] = cluster_build_plan(2, nt, L, Bx, item, smax, C)._asdict()
             caps = sorted({Bx + 5, Bx, Bx // 2, Bx // 4, 0, -1}, reverse=True)
             want = torch.stack([tb.backtrack_plain(U_p, phi_p, btilde[0], c) for c in caps])
             for k, cap in enumerate(caps):
@@ -422,10 +432,16 @@ def edge_phase(torch) -> dict:
                     f"{what}: chase_batched on one set of maps equal at caps {caps}")
             require(torch.equal(chase_batched(*(t.contiguous() for t in wave), caps_t), want),
                     f"{what}: chase_batched on a set per row equal at caps {caps}")
+            two = torch.stack([caps_t, caps_t.flip(0)])
+            require(torch.equal(chase_trials(Ub_p, phib_p, btilde, two),
+                                tb.backtrack_trials_plain(Ub_p, phib_p, btilde, two.cpu())),
+                    f"{what}: chase_trials equal at caps {caps} on two starts")
             us = U_p.element_size()
             cases.append({"edge": name, "dtype": str(dtype).replace("torch.", ""),
                           "nt": nt, "L": L, "B": Bx, "caps": caps,
                           "build_plan": build_plan(nt, L, Bx, item)._asdict(),
+                          "batched_build_plans": build_plans,
+                          "trials_plan": chase_plan(nt, L, Bx, us, 2, 2 * K)._asdict(),
                           "chase_plan": chase_plan(nt, L, Bx, us)._asdict(),
                           "batched_plans": [chase_plan(nt, L, Bx, us, 1, K)._asdict(),
                                             chase_plan(nt, L, Bx, us, K, K)._asdict()],
@@ -458,8 +474,8 @@ BATCHED = (
 def batched_phase(torch, name, S, shape, trial_caps, dtype, seed):
     from mioc_tpu_torch.ops import bellman as tb
     from mioc_tpu_torch.ops import levels as lv
-    from mioc_tpu_torch.ops.backtrack_cuda import chase_batched, chase_trials
-    from mioc_tpu_torch.ops.bellman_cuda import dp_build_batched
+    from mioc_tpu_torch.ops.backtrack_cuda import chase_batched, chase_plan, chase_trials
+    from mioc_tpu_torch.ops.bellman_cuda import cluster_build_plan, dp_build_batched
 
     _, nt, B, (kind, V), (p, beta, tau) = shape
     adm = lv.bounded_sum_levels(V, 1, 1) if kind == "bounded" else lv.product_levels(V)
@@ -495,6 +511,24 @@ def batched_phase(torch, name, S, shape, trial_caps, dtype, seed):
     t_p = tb.backtrack_trials_plain(U_k, phi_k, btilde, trials.cpu())
     trial_err = int((t_k.long() - t_p.long()).abs().max())
     require(trial_err == 0, f"{name} {dtype}: trial chase equal at caps {trial_caps}")
+    # Mixed caps in one wave (-1, 0, B, past B and between, another order per
+    # start) on tables whose odd starts have a +inf seed (u_old row 0 more
+    # than smax from every level): rows of other sets and sentinels side by
+    # side in one launch.
+    u_far = u_old.clone()
+    u_far[1::2, 0] = float(np.abs(adm.levels).max() + smax + 1)
+    st_f, bt_f = tb.stage_tables(grad, u_far, adm.levels, tau)
+    U_f, phi_f = dp_build_batched(st_f, bt_f, jump, B, smax)
+    U_fp, phi_fp = tb.build_tables_batched_plain(st_f, bt_f, jump, B, smax)
+    require(torch.equal(U_f, U_fp) and torch.equal(bits(phi_f, torch), bits(phi_fp, torch)),
+            f"{name} S={S} {dtype}: +inf-seed batched tables bit-equal")
+    require(not bool(torch.isfinite(phi_f[1::2]).any()), f"{name}: odd starts' phi0 +inf")
+    mixed = [-1, 0, B, B + 3, B // 2, B // 4, 1, -2, B // 3][:Kt]
+    mixed_caps = torch.tensor(np.array([np.random.default_rng(seed + s).permutation(mixed)
+                                        for s in range(S)]), dtype=torch.int32, device=dev)
+    require(torch.equal(chase_trials(U_f, phi_f, bt_f, mixed_caps),
+                        tb.backtrack_trials_plain(U_f, phi_f, bt_f, mixed_caps.cpu())),
+            f"{name} S={S} {dtype}: trial chase equal at mixed caps {mixed} on +inf seeds")
 
     dt_name = "float64" if dtype == torch.float64 else "float32"
     ds, us = phi_k.element_size(), U_k.element_size()
@@ -524,7 +558,7 @@ def batched_phase(torch, name, S, shape, trial_caps, dtype, seed):
         lambda: chase_trials(U_k, phi_k, btilde, trials), 3, 10)
     out = {"phase": "batched_kernels", "shape": name, "dtype": dt_name, "S": S,
            "nt": nt, "L": L, "B": B, "u_dtype": str(U_k.dtype).replace("torch.", ""),
-           "caps": caps.tolist(), "trial_caps": trial_caps}
+           "caps": caps.tolist(), "trial_caps": trial_caps, "mixed_trial_caps": mixed}
     for key, ms, plain, nbytes, ops, err in (
             ("dp_build_batched", b_ms, b_plain, build_bytes, build_ops, phi_err),
             ("chase_batched", c_ms, c_plain, chase_bytes, chase_ops, idx_err),
@@ -533,6 +567,8 @@ def batched_phase(torch, name, S, shape, trial_caps, dtype, seed):
         out[key] = {"bit_equal": True, "max_abs_err": err, "kernel_ms": ms,
                     "ns_per_step": ms * 1e6 / max(nt - 1, 1), "plain_ms": plain,
                     "bound_ms": bd_ms, "bound_by": bd_by, "ops": ops, "bytes": nbytes}
+    out["dp_build_batched"]["plan"] = cluster_build_plan(S, nt, L, B, ds, smax)._asdict()
+    out["chase_trials"]["plan"] = chase_plan(nt, L, B, us, S, S * Kt)._asdict()
     emit(out)
     return out
 

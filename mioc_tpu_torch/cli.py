@@ -14,9 +14,13 @@ Differences from the JAX CLI:
 * ``--dp-backend``: ``pallas`` means the port's CUDA kernels, the default
   anyway (the plain versions on the CPU); ``scan`` means the plain versions
   and is refused on the card, where no solve runs them; ``temporal`` and
-  ``sharded`` are not ported and raise ``NotImplementedError``;
-* plotting is not ported (ROADMAP.md queue A item 7): a run without
-  ``--no-plot`` raises ``NotImplementedError``;
+  ``sharded`` are not ported and raise ``NotImplementedError``
+  (``solvers.trm.dp_route``, the rule the solvers apply too);
+* plotting is not ported (ROADMAP.md queue A item 7): a run that the JAX
+  CLI would plot — a single host-loop solve, or any ``--device-loop`` run,
+  without ``--no-plot`` — raises ``NotImplementedError`` before it solves;
+  the host-loop ``--multistart N`` (N > 1), which the JAX CLI does not plot,
+  runs;
 * ``--multistart`` with ``--device-loop`` runs the batched multistart on one
   device (no mesh);
 * ``mixed`` and ``heat`` are listed but not ported: they raise
@@ -45,19 +49,6 @@ def build_objective(problem: str, n: int, device=None):
         raise SystemExit(str(exc.args[0]))
 
 
-def _dp_backend(name, device):
-    """The TRMParameters ``dp_backend`` for the ``--dp-backend`` flag."""
-    from .solvers.trm import _UNPORTED_BACKENDS
-
-    if name in _UNPORTED_BACKENDS:
-        raise NotImplementedError(f"dp_backend={name!r} is not ported yet: ROADMAP.md "
-                                  f"{_UNPORTED_BACKENDS[name]}")
-    if name == "scan" and device.type == "cuda":
-        raise ValueError("--dp-backend scan selects the plain versions, which no solve "
-                         "runs on the card; the CUDA kernels are the default there")
-    return None  # "pallas", "scan" on the CPU, or unset: the device's route
-
-
 def main(argv=None):
     # Plugin-style problem discovery (multi-trust.jl:15-20): import every
     # example_*.py on $MIOC_PROBLEMS_PATH (default: the working directory).
@@ -77,7 +68,8 @@ def main(argv=None):
     ap.add_argument("--p", type=float, default=None)
     ap.add_argument("--maxiter", type=int, default=1000)
     ap.add_argument("--no-plot", action="store_true",
-                    help="required: plotting is not ported yet")
+                    help="required where the run would plot (a single solve, or "
+                         "--device-loop): plotting is not ported yet")
     ap.add_argument("--no-log", action="store_true")
     ap.add_argument("--metrics", default=None, help="jsonl metrics path")
     ap.add_argument("--checkpoint", default=None, help="npz checkpoint path")
@@ -106,13 +98,16 @@ def main(argv=None):
                     help="torch device of the solve (default: cuda; no fallback)")
     args = ap.parse_args(argv)
 
-    if not args.no_plot:
+    # The JAX CLI plots where it holds an objective: after a single solve or
+    # any device-loop run, not after the host-loop multistart.
+    if not args.no_plot and (args.device_loop or args.multistart <= 1):
         raise NotImplementedError(f"plotting is not ported yet: {_PLOT}; pass --no-plot")
 
     from ._device import resolve_device
-    from .solvers.trm import TRMParameters, TRMResult, trm_solve
+    from .solvers.trm import TRMParameters, TRMResult, dp_route, trm_solve
 
     device = resolve_device(args.device)
+    dp_route(args.dp_backend, None, device)
     preset = dict(registry.get(args.problem).preset)
     for key in ("beta", "delta0", "p"):
         if getattr(args, key) is not None:
@@ -123,7 +118,7 @@ def main(argv=None):
         log=not args.no_log,
         metrics_path=args.metrics,
         checkpoint_path=args.checkpoint,
-        dp_backend=_dp_backend(args.dp_backend, device),
+        dp_backend=args.dp_backend,
     )
 
     def _julia_x0(obj, start: int = 0):

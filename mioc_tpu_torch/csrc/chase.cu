@@ -78,7 +78,7 @@ int mioc_chase(const void* phi0, const void* btilde, const void* U, const void* 
   if (Tc < 1 || C < 0 || (long long)C * Tc < nt - 1) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MIOC_CHASE_ARGS \
-  phi0, btilde, U, B_dev, B_new, out, scratch, 1, 1, nt, L, B, Tc, C, staged, 0, 0, 0, s
+  phi0, btilde, U, B_dev, B_new, out, scratch, 1, 1, 1, nt, L, B, Tc, C, staged, 0, 0, 0, s
   if (dtype_bytes == 8 && u_bytes == 1) return mioc::launch_chunked<double, int8_t>(MIOC_CHASE_ARGS);
   if (dtype_bytes == 8 && u_bytes == 4) return mioc::launch_chunked<double, int32_t>(MIOC_CHASE_ARGS);
   if (dtype_bytes == 4 && u_bytes == 1) return mioc::launch_chunked<float, int8_t>(MIOC_CHASE_ARGS);

@@ -63,7 +63,7 @@ int mioc_chase_batched(const void* phi0, const void* btilde, const void* U,
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define MIOC_CHASE_ARGS \
-  phi0, btilde, U, B_new, 0, out, scratch, R, G, nt, L, B, Tc, C, staged, sp, sb, su, s
+  phi0, btilde, U, B_new, 0, out, scratch, R, G, 1, nt, L, B, Tc, C, staged, sp, sb, su, s
   if (dtype_bytes == 8 && u_bytes == 1) return mioc::launch_chunked<double, int8_t>(MIOC_CHASE_ARGS);
   if (dtype_bytes == 8 && u_bytes == 4) return mioc::launch_chunked<double, int32_t>(MIOC_CHASE_ARGS);
   if (dtype_bytes == 4 && u_bytes == 1) return mioc::launch_chunked<float, int8_t>(MIOC_CHASE_ARGS);

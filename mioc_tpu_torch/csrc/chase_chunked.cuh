@@ -1,6 +1,7 @@
 // chase_chunked.cuh — the chunked chase of state maps, shared by chase.cu
-// (one table set, one row) and chase_batched.cu (G table sets, R rows), and
-// the chunk staging that chase_vec.cu uses too.
+// (one table set, one row), chase_batched.cu (G table sets, R rows) and
+// chase_trials.cu (S table sets of Kt rows each), and the chunk staging that
+// chase_vec.cu uses too.
 //
 // Every row r chases the DP path of table set g(r) at its own cap:
 //
@@ -11,10 +12,13 @@
 //          JAX scan chase does, common.cuh budget_index);
 //   out[r, 0] = seed l, out[r, k+1] = l after step k.
 //
-// The rows and sets: G = 1 (every row reads set 0: the K caps of a single
-// solve's trial wave against one build) or G = R (row r reads set r: one
-// table set per start).  phi0_r is read at r·sp, so a stride of 0 on phi0
-// alone still gives G = R; the maps below depend on U and b̃ only.
+// The rows and sets: G divides R and row r reads set g(r) = r / (R/G), so
+// set g holds the R/G rows g·(R/G) … (g+1)·(R/G)-1.  G = 1 is the K caps of a
+// single solve's trial wave against one build (every row on set 0); G = R is
+// one table set per start; G = S with R = S·Kt is the trial wave of a
+// multistart (Kt caps per start).  phi0_r is read at (r / pr)·sp: pr = 1 for
+// a phi0 per row (a stride of 0 on phi0 alone still gives G = R), pr = Kt
+// for one phi0 per set.  The maps below depend on U and b̃ only.
 //
 // The state space is finite (P = L·(B+1) states (l, b), b ∈ [0, B]) and each
 // step maps states to states, so time is cut into C chunks of Tc steps and
@@ -32,8 +36,8 @@
 //   C  tasks (g, c) again, last first (the last one phase A staged is still
 //      in shared memory): the block holding chunk c of set g re-walks it for
 //      every row of set g whose first_bad lies beyond c, one thread per row
-//      from its entry state, and writes out[r, cTc+1 …].  The K rows of a
-//      trial wave share one staged chunk.
+//      from its entry state, and writes out[r, cTc+1 …].  The R/G rows of a
+//      set (the caps of a trial wave) share one staged chunk.
 // Scratch (int32): E (G, C, P), entry (R, C), first_bad (R,).
 //
 // Measured (python -m mioc_tpu_torch.profile_kernels; NVIDIA H100 80GB HBM3,
@@ -41,7 +45,8 @@
 // heat scale with 32 chunks; 32 table sets at fishing (chase_batched.cu, 8
 // chunks each) 36, of which phase A's walks ~10 (bound by the gathers' bank
 // conflicts in shared memory) and phase C's one-thread re-walks ~7; the
-// K=9 wave on one set 17–19 at fishing, 21–22 at conv.
+// K=9 wave on one set 17–19 at fishing, 21–22 at conv; the trial wave of 32
+// sets of 9 caps (chase_trials.cu) 36 at fishing, as 32 sets of one.
 
 #pragma once
 
@@ -50,8 +55,8 @@
 #include "common.cuh"
 
 namespace mioc {
-// Internal linkage: chase.cu and chase_batched.cu each build their own
-// library from this header, and the launcher's cached attributes belong to
+// Internal linkage: chase.cu, chase_batched.cu and chase_trials.cu each build
+// their own library from this header, and the launcher's cached attributes belong to
 // that library's kernel.  (With external linkage the dynamic loader binds the
 // two libraries' function-local statics to one copy, and a launch skips
 // setting its own kernel's shared-memory attribute.)
@@ -167,14 +172,14 @@ __device__ void chain_row(int flat, const int32_t* E, const UT* __restrict__ U,
 
 template <typename T, typename UT, bool STAGED>
 __global__ void __launch_bounds__(kChaseThreads)
-chunked_chase_kernel(const T* __restrict__ phi0,          // (R, L, B+1), stride sp
+chunked_chase_kernel(const T* __restrict__ phi0,          // (R/pr, L, B+1), stride sp
                      const int32_t* __restrict__ btilde,  // (G, nt, L), stride sb
                      const UT* __restrict__ U,            // (G, nt-1, L, B+1), stride su
                      const int32_t* __restrict__ caps,    // (R,), or nullptr: cap
                      int cap,
                      int32_t* __restrict__ out,           // (R, nt)
                      int32_t* scratch,                    // E, entry, first_bad
-                     int R, int G, int nt, int L, int B, int Tc, int C,
+                     int R, int G, int pr, int nt, int L, int B, int Tc, int C,
                      long long sp, long long sb, long long su) {
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ T sval[kChaseThreads];
@@ -183,6 +188,7 @@ chunked_chase_kernel(const T* __restrict__ phi0,          // (R, L, B+1), stride
   const int P = L * B1;
   const int steps = nt - 1;
   const int tasks = G * C;
+  const int RG = R / G;  // rows per set
   int32_t* E = scratch;
   int32_t* entry = scratch + (size_t)tasks * P;
   int32_t* first_bad = entry + (size_t)R * C;
@@ -220,10 +226,11 @@ chunked_chase_kernel(const T* __restrict__ phi0,          // (R, L, B+1), stride
     const int nb = gridDim.x;
     const int nwarps = nb * (kChaseThreads / 32);
     for (int r = (int)(threadIdx.x >> 5) * nb + (int)blockIdx.x; r < R; r += nwarps) {
-      const int g = G == 1 ? 0 : r;
+      const int g = r / RG;
       T best;
       int bi;
-      scan_masked(phi0 + r * sp, P, B1, caps != nullptr ? caps[r] : cap, lane, 32, best, bi);
+      scan_masked(phi0 + (r / pr) * sp, P, B1, caps != nullptr ? caps[r] : cap, lane, 32, best,
+                  bi);
       warp_argmin(best, bi);
       if (lane == 0)
         chain_row(bi, E + (size_t)g * C * P, U + g * su, btilde + g * sb, out + (size_t)r * nt,
@@ -237,8 +244,8 @@ chunked_chase_kernel(const T* __restrict__ phi0,          // (R, L, B+1), stride
   const int last = bid < tasks ? bid + (tasks - 1 - bid) / nb * nb : -1;
   for (int t = last; t >= 0; t -= nb) {
     const int g = t / C, c = t - g * C;
-    const int r0 = G == 1 ? 0 : g;  // the rows of set g
-    const int nr = G == 1 ? R : 1;
+    const int r0 = g * RG;  // the rows of set g
+    const int nr = RG;
     int need = 0;
     for (int j = threadIdx.x; j < nr && !need; j += blockDim.x)
       need = __ldcg(first_bad + r0 + j) > c;
@@ -276,8 +283,8 @@ chunked_chase_kernel(const T* __restrict__ phi0,          // (R, L, B+1), stride
 // error).
 template <typename T, typename UT, bool STAGED>
 int launch_chunked_as(const void* phi0, const void* btilde, const void* U, const void* caps,
-                      int cap, void* out, void* scratch, int R, int G, int nt, int L, int B,
-                      int Tc, int C, long long sp, long long sb, long long su,
+                      int cap, void* out, void* scratch, int R, int G, int pr, int nt, int L,
+                      int B, int Tc, int C, long long sp, long long sb, long long su,
                       cudaStream_t stream) {
   const size_t plane = (size_t)L * (B + 1) * sizeof(UT);
   const size_t smem = chunk_smem(Tc, plane, L, STAGED);
@@ -311,7 +318,7 @@ int launch_chunked_as(const void* phi0, const void* btilde, const void* U, const
   const int32_t* a3 = static_cast<const int32_t*>(caps);
   int32_t* a4 = static_cast<int32_t*>(out);
   int32_t* a5 = static_cast<int32_t*>(scratch);
-  void* args[] = {&a0, &a1, &a2, &a3, &cap, &a4, &a5, &R, &G, &nt, &L, &B, &Tc, &C,
+  void* args[] = {&a0, &a1, &a2, &a3, &cap, &a4, &a5, &R, &G, &pr, &nt, &L, &B, &Tc, &C,
                   &sp, &sb, &su};
   e = cudaLaunchCooperativeKernel((const void*)kern, dim3(grid), dim3(kChaseThreads), args,
                                   smem, stream);
@@ -319,15 +326,18 @@ int launch_chunked_as(const void* phi0, const void* btilde, const void* U, const
   return (int)cudaGetLastError();
 }
 
+// R rows on G table sets (G divides R), phi0 of row r at (r / pr)·sp.
 template <typename T, typename UT>
 int launch_chunked(const void* phi0, const void* btilde, const void* U, const void* caps,
-                   int cap, void* out, void* scratch, int R, int G, int nt, int L, int B,
-                   int Tc, int C, int staged, long long sp, long long sb, long long su,
+                   int cap, void* out, void* scratch, int R, int G, int pr, int nt, int L,
+                   int B, int Tc, int C, int staged, long long sp, long long sb, long long su,
                    cudaStream_t stream) {
+  if (R < 1 || G < 1 || R % G != 0 || pr < 1) return -1;
   return staged ? launch_chunked_as<T, UT, true>(phi0, btilde, U, caps, cap, out, scratch,
-                                                  R, G, nt, L, B, Tc, C, sp, sb, su, stream)
+                                                  R, G, pr, nt, L, B, Tc, C, sp, sb, su, stream)
                 : launch_chunked_as<T, UT, false>(phi0, btilde, U, caps, cap, out, scratch,
-                                                   R, G, nt, L, B, Tc, C, sp, sb, su, stream);
+                                                   R, G, pr, nt, L, B, Tc, C, sp, sb, su,
+                                                   stream);
 }
 
 }  // namespace

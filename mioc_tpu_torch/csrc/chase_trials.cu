@@ -1,5 +1,6 @@
 // chase_trials — the trial-wave chase: Kt budget caps per start against that
-// start's one table set, by hand for Hopper.
+// start's one table set, by hand for Hopper: the chunked chase of state maps
+// over S table sets of Kt rows each.
 //
 // Replaces: mioc_tpu/ops/backtrack_pallas.py::_bt_kernel_trials (the TPU
 // kernel behind backtrack_pallas_trials / _backtrack_trials_impl: the
@@ -14,93 +15,63 @@
 //
 // The caps are an int32 (S, Kt) tensor in device memory.  Kt ≤ 128.
 //
-// What bounds it on this card: like every chase, the chain of nt-1 dependent
-// loads, so memory latency.  The TPU kernel DMAs each U plane once per step
-// for all Kt trials; here one block serves one start (blockIdx.x = s) and
-// its Kt chains walk in parallel, one thread each, in lockstep over k: all
-// Kt reads of step k fall in the same (L, B+1) plane U[s, k], so the plane
-// comes from device memory once and the other reads hit the cache.  The
-// seeds' masked argmins are independent: one warp per trial (warps take
-// trials round-robin), each a strided scan of the plane and a warp-shuffle
-// (value, flat index) reduction with the first-index rule.
+// The TPU kernel DMAs each U plane once per step for all Kt trials.  The
+// first Hopper design gave each start a block whose Kt threads walked all
+// nt-1 dependent steps out of device memory in lockstep (~185 ns a step at
+// fishing, 189 µs a wave).  This one runs chase_chunked.cuh with G = S table
+// sets and R = S·Kt rows, row r on set r / Kt: the state maps of a chunk
+// depend on U and b̃ only, never on the cap, so phase A maps each start's
+// chunks once for all its Kt caps, phase B chains each row (a warp per row,
+// the seed a warp-wide argmin of its start's phi0), and phase C re-walks
+// each staged chunk for the Kt rows of its start, a thread per row.
+//
+// What bounds it on this card: as for chase_batched.cu at G = S (phase A's
+// shared-memory gathers, phase C's one-thread re-walk of a chunk, phase B's
+// C dependent L2 reads per row, two grid barriers); the rows add only phase
+// B's warps and phase C's threads.  The wrapper
+// (backtrack_cuda.chase_plan with sets=S, rows=S·Kt) picks the chunks per
+// set so that the S·C tasks fill the card.
+//
+// Measured (python -m mioc_tpu_torch.profile_kernels; NVIDIA H100 80GB HBM3,
+// 700 W), fishing S=32, Kt=9, float64: 36 µs on the device (the first
+// design: 189); without phase A's maps 23, without phase C's re-walk 26.
 //
 // Interface: plain C, pointers as void*, launched on the caller's stream;
-// returns cudaGetLastError() after the launch (0 = launched).
+// returns the launch's cudaError_t (0 = launched).
 
-#include "common.cuh"
+#include "chase_chunked.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxTrials = 128;
-
-template <typename T, typename UT>
-__global__ void __launch_bounds__(kThreads)
-chase_trials_kernel(const T* __restrict__ phi0,            // (S, L, B+1)
-                    const int32_t* __restrict__ btilde,    // (S, nt, L)
-                    const UT* __restrict__ U,              // (S, nt-1, L, B+1)
-                    const int32_t* __restrict__ B_trials,  // (S, Kt)
-                    int32_t* __restrict__ out,             // (S, Kt, nt)
-                    int Kt, int nt, int L, int B) {
-  __shared__ int seed[kMaxTrials];
-  const int s = blockIdx.x;
-  const int B1 = B + 1;
-  const int P = L * B1;
-  phi0 += (size_t)s * P;
-  btilde += (size_t)s * nt * L;
-  U += (size_t)s * (nt - 1) * P;
-  B_trials += (size_t)s * Kt;
-  out += (size_t)s * Kt * nt;
-
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  for (int t = warp; t < Kt; t += kWarps) {
-    T best;
-    int bi;
-    mioc::scan_masked(phi0, P, B1, B_trials[t], lane, 32, best, bi);
-    mioc::warp_argmin(best, bi);
-    if (lane == 0) seed[t] = bi;
-  }
-  __syncthreads();
-
-  const int t = threadIdx.x;
-  if (t < Kt) {
-    const int l = seed[t] / B1;
-    mioc::walk(U, btilde, out + (size_t)t * nt, 0, nt, L, B, l, seed[t] - l * B1);
-  }
-}
-
-template <typename T, typename UT>
-int launch(const void* phi0, const void* btilde, const void* U, const void* B_trials,
-           void* out, int S, int Kt, int nt, int L, int B, cudaStream_t stream) {
-  chase_trials_kernel<T, UT><<<S, kThreads, 0, stream>>>(
-      static_cast<const T*>(phi0), static_cast<const int32_t*>(btilde),
-      static_cast<const UT*>(U), static_cast<const int32_t*>(B_trials),
-      static_cast<int32_t*>(out), Kt, nt, L, B);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
 
 // dtype_bytes: 4 (float) or 8 (double) for phi0; u_bytes: 1 (int8) or 4
-// (int32).  Returns a cudaError_t value (0 = success); -1 for an unsupported
-// type pair or Kt outside 1 … 128.
+// (int32).  phi0 (S, L, B+1), btilde (S, nt, L), U (S, nt-1, L, B+1),
+// B_trials (S, Kt) and out (S, Kt, nt), all contiguous.  scratch:
+// S·C·L·(B+1) + S·Kt·C + S·Kt int32 on the device (E (S, C, P), entry (S·Kt,
+// C), first_bad (S·Kt,)).  Tc, C, staged: the plan of
+// backtrack_cuda.chase_plan with sets=S, rows=S·Kt.  Returns a cudaError_t value (0 = success; a refused
+// cooperative launch returns its error); -1 for an unsupported type pair or
+// plan, or Kt outside 1 … 128.
 int mioc_chase_trials(const void* phi0, const void* btilde, const void* U,
-                      const void* B_trials, void* out, int S, int Kt, int nt, int L,
-                      int B, int dtype_bytes, int u_bytes, void* stream) {
-  if (Kt < 1 || Kt > kMaxTrials) return -1;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype_bytes == 8 && u_bytes == 1)
-    return launch<double, int8_t>(phi0, btilde, U, B_trials, out, S, Kt, nt, L, B, st);
-  if (dtype_bytes == 8 && u_bytes == 4)
-    return launch<double, int32_t>(phi0, btilde, U, B_trials, out, S, Kt, nt, L, B, st);
-  if (dtype_bytes == 4 && u_bytes == 1)
-    return launch<float, int8_t>(phi0, btilde, U, B_trials, out, S, Kt, nt, L, B, st);
-  if (dtype_bytes == 4 && u_bytes == 4)
-    return launch<float, int32_t>(phi0, btilde, U, B_trials, out, S, Kt, nt, L, B, st);
+                      const void* B_trials, void* out, void* scratch, int S, int Kt, int nt,
+                      int L, int B, int Tc, int C, int staged, int dtype_bytes, int u_bytes,
+                      void* stream) {
+  if (Kt < 1 || Kt > kMaxTrials || S < 1 || Tc < 1 || C < 0 || (long long)C * Tc < nt - 1)
+    return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long P = (long long)L * (B + 1);
+  const long long sb = (long long)nt * L, su = (long long)(nt - 1) * P;
+#define MIOC_TRIALS_ARGS                                                                   \
+  phi0, btilde, U, B_trials, 0, out, scratch, S * Kt, S, Kt, nt, L, B, Tc, C, staged, P, \
+      sb, su, s
+  if (dtype_bytes == 8 && u_bytes == 1) return mioc::launch_chunked<double, int8_t>(MIOC_TRIALS_ARGS);
+  if (dtype_bytes == 8 && u_bytes == 4) return mioc::launch_chunked<double, int32_t>(MIOC_TRIALS_ARGS);
+  if (dtype_bytes == 4 && u_bytes == 1) return mioc::launch_chunked<float, int8_t>(MIOC_TRIALS_ARGS);
+  if (dtype_bytes == 4 && u_bytes == 4) return mioc::launch_chunked<float, int32_t>(MIOC_TRIALS_ARGS);
+#undef MIOC_TRIALS_ARGS
   return -1;
 }
 

@@ -26,7 +26,9 @@
 // barrier per step), and the post-shift argmin plane U_i streams straight to
 // device memory, unpadded (nt-1, L, B+1), int8 when L ≤ 127 as on the TPU.
 // Splitting one start over a thread-block cluster (distributed shared
-// memory), the lever at heat scale, waits until heat has a path in the port.
+// memory), the lever at heat scale, is the batched build's cluster form
+// (dp_build.cuh); this single build still launches one block, until heat
+// has a path in the port.
 //
 // Interface: plain C, pointers as void*, launched on the caller's stream;
 // returns cudaGetLastError() after the launch (0 = launched).
@@ -42,8 +44,8 @@ extern "C" {
 int mioc_dp_build(const void* stage, const void* btilde, const void* jump,
                   void* U, void* phi0, int nt, int L, int B, int smax, int R, int jsmem,
                   int tpl, int K, int dtype_bytes, int u_bytes, void* stream) {
-  return mioc::dp_build_dispatch(stage, btilde, jump, U, phi0, 1, nt, L, B, smax, R,
-                                 jsmem, tpl, K, dtype_bytes, u_bytes, stream);
+  return mioc::dp_build_dispatch<false>(stage, btilde, jump, U, phi0, 1, nt, L, B, smax, R,
+                                        jsmem, tpl, K, 1, 0, dtype_bytes, u_bytes, stream);
 }
 
 }  // extern "C"

@@ -11,19 +11,33 @@
 //
 // The TPU kernel advances all S starts in lockstep vector ops, (S·Lp)
 // sublanes × Bp lanes, because one TPU core runs the grid in order.  On
-// Hopper the starts are independent blocks: block s runs the single build's
-// body on its own start (the body is shared with dp_build.cu), so S starts
-// occupy S of the 132 SMs and run side by side.
+// Hopper the starts are independent.  The first design gave each start one
+// block running the single build's body: a sequential recurrence of nt-1
+// barrier-separated steps on ONE SM, so S = 32 used 32 of the 132 SMs and S
+// = 8 used 8, and at heat scale (L = 36, B = 204) a step took ~17.6 µs of one
+// SM's shared-memory loads while 124 SMs sat idle.
 //
-// What bounds it on this card: each block is the single build — a
-// sequential recurrence of nt-1 barrier-separated steps on one SM — so with
-// S ≤ 132 the batch takes about one start's time, and only past 132 starts
-// (or past the blocks one SM can hold in shared memory) does it queue.  The
-// byte and operation bounds over the whole card are S times the single
-// build's, still decades below what one SM per start can reach.  Shared
-// memory per block is the single build's plan (bellman_cuda.build_plan): the
-// Φ double buffer, the jump table where it is not in registers, and the ring
-// of staged stage/b̃ rows, at most 232,448 bytes.
+// This one launches the body's cluster form where the plan asks for it
+// (bellman_cuda.batched_build_plan): C CTAs per start, one cluster each, CTA
+// k relaxing the budget slice [lo_k, hi_k) of all L level combinations with
+// an smax-wide halo below it, pushed each step through distributed shared
+// memory by the CTA that owns it, and a cluster barrier per step.  C = 1 is
+// the first design's launch, unchanged: one block per start, no cluster.
+//
+// What bounds it on this card: per start, the nt-1 sequential steps; a step
+// costs its slice's relaxations (L candidates each, two shared-memory loads
+// per candidate) plus the cluster barrier, so C divides the first and adds
+// the second.  The plan takes C > 1 only where the relaxations outweigh the
+// barrier, and only as many CTAs as let all S clusters run at once
+// (bellman_cuda.cluster_build_plan).  The byte and operation bounds over the
+// whole card are decades below.
+//
+// Measured (python -m mioc_tpu_torch.profile_kernels, ms per call; NVIDIA
+// H100 80GB HBM3, 700 W, float64): heat scale S=8 17.99 with one block per
+// start, 4.06–4.13 with 9 CTAs per start, 4.93 with 16 (the card holds 7
+// such clusters at once, so two waves); S=1 2.46 with 16 (17.85–18.01 with
+// one).  Fishing S=32: 0.44–0.47 with one block, 1.11–1.24 with any C > 1
+// (a cluster barrier costs ~0.65 µs a step more than the block's).
 //
 // Interface: plain C, pointers as void*, launched on the caller's stream;
 // returns cudaGetLastError() after the launch (0 = launched).
@@ -33,15 +47,34 @@
 extern "C" {
 
 // dtype_bytes: 4 (float) or 8 (double); u_bytes: 1 (int8) or 4 (int32); R,
-// jsmem, tpl, K: the launch plan (mioc_tpu_torch/ops/bellman_cuda.py).
-// Returns a cudaError_t value (0 = success); -1 for an unsupported type pair
-// or plan.
+// jsmem, tpl, K, C, H: the launch plan (bellman_cuda.batched_build_plan:
+// ring rows, jump table in shared memory, threads per level combination,
+// outputs per thread, CTAs per start, halo budgets).  Returns a cudaError_t
+// value (0 = success; a refused cluster launch returns its error); -1 for an
+// unsupported type pair or plan.
 int mioc_dp_build_batched(const void* stage, const void* btilde, const void* jump,
                           void* U, void* phi0, int S, int nt, int L, int B, int smax,
-                          int R, int jsmem, int tpl, int K, int dtype_bytes, int u_bytes,
-                          void* stream) {
-  return mioc::dp_build_dispatch(stage, btilde, jump, U, phi0, S, nt, L, B, smax, R,
-                                 jsmem, tpl, K, dtype_bytes, u_bytes, stream);
+                          int R, int jsmem, int tpl, int K, int C, int H, int dtype_bytes,
+                          int u_bytes, void* stream) {
+  if (C > 1)
+    return mioc::dp_build_dispatch<true>(stage, btilde, jump, U, phi0, S, nt, L, B, smax, R,
+                                         jsmem, tpl, K, C, H, dtype_bytes, u_bytes, stream);
+  return mioc::dp_build_dispatch<false>(stage, btilde, jump, U, phi0, S, nt, L, B, smax, R,
+                                        jsmem, tpl, K, C, H, dtype_bytes, u_bytes, stream);
+}
+
+// How many clusters of the plan (C > 1) the card can hold at once
+// (cudaOccupancyMaxActiveClusters, into *count); nothing is launched.  0
+// means the card does not schedule that cluster.  Returns a cudaError_t
+// value, or -1 for an unsupported type pair or plan.
+int mioc_dp_build_batched_clusters(int S, int nt, int L, int B, int smax, int R, int jsmem,
+                                   int tpl, int K, int C, int H, int dtype_bytes, int u_bytes,
+                                   int* count) {
+  *count = 0;
+  if (C < 2) return -1;
+  return mioc::dp_build_dispatch<true>(nullptr, nullptr, nullptr, nullptr, nullptr, S, nt, L,
+                                       B, smax, R, jsmem, tpl, K, C, H, dtype_bytes, u_bytes,
+                                       nullptr, count);
 }
 
 }  // extern "C"

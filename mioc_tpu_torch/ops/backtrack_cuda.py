@@ -11,7 +11,8 @@
   ``_bt_kernel_batched``: S starts, a cap per start, the chunked chase of
   :func:`chase` with one set of state maps per table set;
 * :func:`chase_trials` — ``csrc/chase_trials.cu``, counterpart of
-  ``_bt_kernel_trials``: Kt caps per start against that start's tables.
+  ``_bt_kernel_trials``: Kt caps per start against that start's tables, the
+  chunked chase over S table sets of Kt rows each.
 
 The source notes say what bounds each kernel and what its design does about
 it.  Each wrapper takes CUDA tensors only: it checks device, dtype, shape and
@@ -48,7 +49,7 @@ _CHASE_ARGS = (_P,) * 6 + (_I,) * 9 + (_P,)
 _VEC_ARGS = (_P,) * 6 + (_I,) * 13 + (_P,)
 _VEC_CLUSTERS_ARGS = (_I,) * 10 + (_P,)
 _BATCHED_ARGS = (_P,) * 6 + (_I,) * 8 + (_LL,) * 3 + (_I,) * 2 + (_P,)
-_TRIALS_ARGS = (_P,) * 5 + (_I,) * 7 + (_P,)
+_TRIALS_ARGS = (_P,) * 6 + (_I,) * 10 + (_P,)
 
 
 @functools.lru_cache(maxsize=None)
@@ -379,9 +380,10 @@ chase_batched.launches = 0
 def chase_trials(U, phi0, btilde, B_trials):
     """Launch the trial wave: ``B_trials (S, Kt)`` caps (int32 on the card,
     Kt ≤ 128) against each start's tables ``U (S, nt-1, L, B+1)``, ``phi0
-    (S, L, B+1)``, ``btilde (S, nt, L)``.  Returns ``level_idx (S, Kt, nt)``
-    int32 on the card; row ``(s, t)`` is :func:`chase` of start ``s`` at
-    ``B_trials[s, t]``."""
+    (S, L, B+1)``, ``btilde (S, nt, L)``: the chunked chase over S table
+    sets of Kt rows each, one set of state maps per start for all its caps.
+    Returns ``level_idx (S, Kt, nt)`` int32 on the card; row ``(s, t)`` is
+    :func:`chase` of start ``s`` at ``B_trials[s, t]``."""
     nt, L, B = _check_tables(U, phi0, btilde, batched=True)
     for name, t in (("U", U), ("phi0", phi0), ("btilde", btilde)):
         if not t.is_contiguous():
@@ -395,11 +397,13 @@ def chase_trials(U, phi0, btilde, B_trials):
         raise ValueError(f"the trial-wave chase takes 1 to {MAX_TRIALS} caps per "
                          f"start, got {Kt}")
     caps = caps.contiguous()
+    plan = chase_plan(nt, L, B, U.element_size(), sets=S, rows=S * Kt)
     out = torch.empty((S, Kt, nt), dtype=torch.int32, device=phi0.device)
+    scratch = torch.empty(plan.scratch, dtype=torch.int32, device=phi0.device)
     fn = _fn("chase_trials", "mioc_chase_trials", _TRIALS_ARGS)
     err = _launch(fn, phi0.device, phi0.data_ptr(), btilde.data_ptr(), U.data_ptr(),
-                  caps.data_ptr(), out.data_ptr(), S, Kt, nt, L, B, phi0.element_size(),
-                  U.element_size())
+                  caps.data_ptr(), out.data_ptr(), scratch.data_ptr(), S, Kt, nt, L, B,
+                  plan.T, plan.C, int(plan.staged), phi0.element_size(), U.element_size())
     if err != 0:
         raise RuntimeError(f"chase_trials launch failed: CUDA error {err}")
     chase_trials.launches += 1

@@ -1,9 +1,11 @@
 """Wrappers of the DP build CUDA kernels.
 
 * :func:`dp_build` — ``csrc/dp_build.cu``, counterpart of
-  ``mioc_tpu.ops.bellman_pallas._dp_kernel``: one start;
+  ``mioc_tpu.ops.bellman_pallas._dp_kernel``: one start, one block;
 * :func:`dp_build_batched` — ``csrc/dp_build_batched.cu``, counterpart of
-  ``_dp_kernel_batched``: S starts that share one jump table.
+  ``_dp_kernel_batched``: S starts that share one jump table, one block per
+  start or, where :func:`batched_build_plan` takes C > 1, one thread-block
+  cluster of C CTAs per start, split along the budget axis.
 
 Both launch the kernel body of ``csrc/dp_build.cuh``, whose note says what
 bounds it and what its design does about it.  Each wrapper takes CUDA
@@ -24,12 +26,16 @@ import torch
 from .bellman import u_dtype
 
 __all__ = ["dp_build", "dp_build_batched", "build_plan", "smem_bytes", "BuildPlan",
-           "MAX_SMEM_BYTES"]
+           "batched_build_plan", "BatchedBuildPlan", "cluster_build_plan",
+           "clusters_at_once", "MAX_SMEM_BYTES", "MAX_CLUSTER"]
 
 MAX_SMEM_BYTES = 232448  # dynamic shared memory one H100 block may use
 MAX_THREADS = 1024  # threads of one block
 JUMP_REGS = 8  # L ≤ 8: each thread holds its jump row in registers
 TPL_ALIGN = 16  # float64 planes beyond one block: tpl a multiple of a half-warp
+MAX_CLUSTER = 16  # CTAs of one cluster (above 8 a non-portable size)
+SMS = 132  # streaming multiprocessors of one H100 SXM
+CLUSTER_MIN_RELAX = 32768  # relaxations L·L·(B+1) of a step that take a cluster
 
 
 class BuildPlan(NamedTuple):
@@ -50,13 +56,13 @@ class BuildPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def _fn(lib_name: str, symbol: str, n_int: int):
-    """The C entry point: five pointers, ``n_int`` ints, the stream (typed
-    once)."""
+def _fn(lib_name: str, symbol: str, n_int: int, n_ptr: int = 5):
+    """The C entry point: ``n_ptr`` pointers, ``n_int`` ints, then the
+    stream, or the count's pointer (typed once)."""
     from ._kernels import library
 
     fn = getattr(library(lib_name), symbol)
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -66,13 +72,16 @@ def _ring_chunks(nt: int, R: int) -> int:
     return -(-steps // R) if steps > 0 and R > 0 else 0
 
 
-def smem_bytes(nt: int, L: int, B: int, itemsize: int, R: int, jsmem: bool) -> int:
+def smem_bytes(nt: int, L: int, B: int, itemsize: int, R: int, jsmem: bool,
+               row: int = None) -> int:
     """Shared memory of one build block, as ``dp_smem_bytes`` in
-    ``csrc/dp_build.cuh`` lays it out: the Φ double buffer, the jump table
-    when ``jsmem``, and the ring of stage and b̃ rows (two buffers of ``R``
-    rows when the sweep takes more than one chunk, else one)."""
+    ``csrc/dp_build.cuh`` lays it out: the Φ double buffer (rows of ``row``
+    entries, default B+1), the jump table when ``jsmem``, and the ring of
+    stage and b̃ rows (two buffers of ``R`` rows when the sweep takes more
+    than one chunk, else one)."""
     nbuf = 2 if _ring_chunks(nt, R) > 1 else 1
-    return (2 * L * (B + 1) * itemsize + (L * L * itemsize if jsmem else 0)
+    row = B + 1 if row is None else row
+    return (2 * L * row * itemsize + (L * L * itemsize if jsmem else 0)
             + (nbuf * R * L * (itemsize + 4) if R > 0 else 0))
 
 
@@ -96,8 +105,15 @@ def build_plan(nt: int, L: int, B: int, itemsize: int) -> BuildPlan:
     level combination's consecutive budgets, free of bank conflicts
     (``python -m mioc_tpu_torch.profile_kernels`` times the build with and
     without it)."""
-    B1 = B + 1
-    base = 2 * L * B1 * itemsize
+    return _block_plan(nt, L, B, B + 1, B + 1, itemsize)
+
+
+def _block_plan(nt: int, L: int, B: int, width: int, phi_row: int,
+                itemsize: int) -> BuildPlan:
+    """:func:`build_plan` for a block that owns ``width`` budgets of each
+    level combination and keeps Φ rows of ``phi_row`` entries (B+1 and B+1
+    for one block per start; a slice and its halo in a cluster)."""
+    base = 2 * L * phi_row * itemsize
     if base > MAX_SMEM_BYTES:
         raise ValueError(f"L={L}, B={B} needs {base} B of shared memory for Φ at "
                          f"{itemsize} bytes per value; one block has {MAX_SMEM_BYTES}")
@@ -118,26 +134,88 @@ def build_plan(nt: int, L: int, B: int, itemsize: int) -> BuildPlan:
     elif jsmem and base + 2 * row <= MAX_SMEM_BYTES:
         jsmem = False
         R = (MAX_SMEM_BYTES - base) // (2 * row)
-    elif (2 * L * B1 + L * L) * itemsize <= MAX_SMEM_BYTES:
+    elif base + L * L * itemsize <= MAX_SMEM_BYTES:
         R, jsmem = 0, False
     else:
         raise ValueError(f"L={L}, B={B} at {itemsize} bytes per value: Φ leaves no "
                          f"room in shared memory ({MAX_SMEM_BYTES} B) for two ring rows")
-    align = TPL_ALIGN if itemsize == 8 and L * B1 > MAX_THREADS - 32 else 1
+    align = TPL_ALIGN if itemsize == 8 and L * width > MAX_THREADS - 32 else 1
     K = 1
     while True:
-        tpl = -(-B1 // K)
+        tpl = -(-width // K)
         if tpl > align // 2:
             tpl = -(-tpl // align) * align
         threads = -(-L * tpl // 32) * 32 + 32
         if threads <= MAX_THREADS:
             break
         K += 1
-    return BuildPlan(R, jsmem, tpl, K, threads, smem_bytes(nt, L, B, itemsize, R, jsmem))
+    return BuildPlan(R, jsmem, tpl, K, threads,
+                     smem_bytes(nt, L, B, itemsize, R, jsmem, phi_row))
+
+
+class BatchedBuildPlan(NamedTuple):
+    """Launch plan of the batched build (``csrc/dp_build_batched.cu``): ``C``
+    CTAs per start (1: one block per start, an ordinary launch; more: one
+    thread-block cluster per start), each owning a budget slice of at most
+    ``width`` budgets with ``H`` halo budgets below it, and the block plan
+    of :class:`BuildPlan` for that slice (``R``, ``jsmem``, ``tpl``, ``K``,
+    ``threads``, ``smem``)."""
+
+    C: int
+    width: int
+    H: int
+    R: int
+    jsmem: bool
+    tpl: int
+    K: int
+    threads: int
+    smem: int
+
+
+def batched_build_plan(S: int, nt: int, L: int, B: int, itemsize: int, smax: int = None,
+                       clusters: int = None) -> BatchedBuildPlan:
+    """The launch plan of the batched build of ``S`` starts of ``(nt, L, B)``
+    at ``itemsize`` (4 or 8), with per-step budget use at most ``smax``
+    (default B).
+
+    ``clusters`` forces C (1 … min(MAX_CLUSTER, B+1)).  Otherwise the rule,
+    from ``python -m mioc_tpu_torch.profile_kernels``'s sweep of C (PERF.md):
+    one block per start where a step's relaxations L·L·(B+1) are fewer than
+    :data:`CLUSTER_MIN_RELAX` (fishing and conv: there a cluster barrier,
+    ~0.65 µs a step more than the block's on an H100, costs more than the
+    split saves); else the largest C ≤
+    min(MAX_CLUSTER, B+1) whose S·C CTAs fit the card's :data:`SMS` at one
+    per SM, or 1 where not even C = 2 does.  :func:`cluster_build_plan`
+    lowers that C further to what the card holds at once.
+
+    With C > 1, CTA k owns the budgets [⌊k(B+1)/C⌋, ⌊(k+1)(B+1)/C⌋) and a
+    halo of H = min(smax, B) budgets below them; the block plan is
+    :func:`build_plan`'s for that slice, and a shape whose ring would not
+    fit raises ``ValueError``."""
+    B1 = B + 1
+    H = B if smax is None else min(smax, B)
+    if clusters is None:
+        C = 1
+        if L * L * B1 >= CLUSTER_MIN_RELAX:
+            C = min(MAX_CLUSTER, B1, SMS // S)
+            C = C if C >= 2 else 1
+    else:
+        C = int(clusters)
+        if not 1 <= C <= min(MAX_CLUSTER, B1):
+            raise ValueError(f"clusters={C}: the build takes 1 to "
+                             f"{min(MAX_CLUSTER, B1)} CTAs per start at B={B}")
+    if C == 1:
+        return BatchedBuildPlan(1, B1, 0, *build_plan(nt, L, B, itemsize))
+    width = -(-B1 // C)
+    plan = _block_plan(nt, L, B, width, H + width, itemsize)
+    if plan.R == 0 and nt > 1:
+        raise ValueError(f"L={L}, B={B}: the cluster build stages its rows; two ring "
+                         f"rows do not fit beside Φ")
+    return BatchedBuildPlan(C, width, H, *plan)
 
 
 def _check(stage, btilde, jump_cost, B: int, lead: tuple):
-    """Checks common to both builds; returns ``(nt, L, plan)``."""
+    """Checks common to both builds; returns ``(nt, L)``."""
     if stage.device.type != "cuda":
         raise ValueError(f"the DP build kernels take CUDA tensors, got {stage.device}")
     if stage.dim() != len(lead) + 2:
@@ -159,13 +237,14 @@ def _check(stage, btilde, jump_cost, B: int, lead: tuple):
             raise ValueError(f"{name} must be contiguous")
     if nt < 1 or L < 1 or B < 0:
         raise ValueError(f"need nt ≥ 1, L ≥ 1, B ≥ 0 (got {nt}, {L}, {B})")
-    return nt, L, build_plan(nt, L, B, stage.element_size())
+    return nt, L
 
 
 def dp_build(stage, btilde, jump_cost, B: int, smax: int):
     """Launch the DP build; returns ``(U (nt-1, L, B+1), phi0 (L, B+1))`` with
     ``U`` of :func:`~.bellman.u_dtype` and ``phi0`` of ``stage``'s dtype."""
-    nt, L, plan = _check(stage, btilde, jump_cost, B, ())
+    nt, L = _check(stage, btilde, jump_cost, B, ())
+    plan = build_plan(nt, L, B, stage.element_size())
     U = torch.empty((nt - 1, L, B + 1), dtype=u_dtype(L), device=stage.device)
     phi0 = torch.empty((L, B + 1), dtype=stage.dtype, device=stage.device)
     with torch.cuda.device(stage.device):
@@ -183,21 +262,80 @@ def dp_build(stage, btilde, jump_cost, B: int, smax: int):
 dp_build.launches = 0
 
 
-def dp_build_batched(stage, btilde, jump_cost, B: int, smax: int):
-    """Launch the batched DP build (one block per start): ``stage``/``btilde``
-    ``(S, nt, L)`` and the shared ``jump_cost (L, L)`` give ``U (S, nt-1, L,
-    B+1)`` and ``phi0 (S, L, B+1)``; start ``s`` equals :func:`dp_build` of
-    that start."""
+@functools.lru_cache(maxsize=1024)
+def _clusters_at_once(S, nt, L, B, itemsize, smax, C, device) -> int:
+    """How many clusters of the plan with C CTAs the card holds at once
+    (``cudaOccupancyMaxActiveClusters``; 0: it schedules none)."""
+    plan = batched_build_plan(S, nt, L, B, itemsize, smax, C)
+    fn = _fn("dp_build_batched", "mioc_dp_build_batched_clusters", 13, 0)
+    count = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = fn(S, nt, L, B, smax, plan.R, int(plan.jsmem), plan.tpl, plan.K, plan.C,
+                 plan.H, itemsize, u_dtype(L).itemsize, ctypes.byref(count))
+    if err != 0:
+        raise RuntimeError(f"dp_build_batched: the cluster query failed: CUDA error {err}")
+    return count.value
+
+
+@functools.lru_cache(maxsize=256)
+def _cluster_build_plan(S, nt, L, B, itemsize, smax, clusters, device) -> BatchedBuildPlan:
+    plan = batched_build_plan(S, nt, L, B, itemsize, smax, clusters)
+    if clusters is not None:
+        if plan.C > 1 and _clusters_at_once(S, nt, L, B, itemsize, smax, plan.C, device) < 1:
+            raise RuntimeError(f"dp_build_batched: the card schedules no cluster of "
+                               f"{plan.C} CTAs with {plan.smem} shared bytes each")
+        return plan
+    C = plan.C
+    while C > 1 and _clusters_at_once(S, nt, L, B, itemsize, smax, C, device) < S:
+        C -= 1
+    return plan if C == plan.C else batched_build_plan(S, nt, L, B, itemsize, smax, C)
+
+
+def cluster_build_plan(S: int, nt: int, L: int, B: int, itemsize: int, smax: int = None,
+                       clusters: int = None, device=None) -> BatchedBuildPlan:
+    """The plan :func:`dp_build_batched` launches on ``device`` (default: the
+    current card): :func:`batched_build_plan`'s C lowered, one at a time, to
+    the largest C whose S clusters the card holds at once
+    (``cudaOccupancyMaxActiveClusters``; a 16-CTA cluster needs 16 SMs of
+    one GPC), or 1 (one block per start) where none does: a start split over
+    more CTAs gains nothing once its cluster has to wait for another to
+    finish (profile_kernels on an H100 SXM at 700 W: heat scale S=8, 16 CTAs
+    in two waves 4.9 ms per call, 8 CTAs in one 4.1).  A forced ``clusters`` is taken as it is, and raises
+    ``RuntimeError`` where the card schedules no such cluster."""
+    dev = torch.device("cuda" if device is None else device)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    return _cluster_build_plan(S, nt, L, B, itemsize, B if smax is None else min(smax, B),
+                               clusters, index)
+
+
+def clusters_at_once(S: int, nt: int, L: int, B: int, itemsize: int, smax: int,
+                     clusters: int, device=None) -> int:
+    """How many clusters of ``clusters`` CTAs of the batched build's plan
+    the card holds at once (for the measurement tools)."""
+    dev = torch.device("cuda" if device is None else device)
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    return _clusters_at_once(S, nt, L, B, itemsize, min(smax, B), clusters, index)
+
+
+def dp_build_batched(stage, btilde, jump_cost, B: int, smax: int, clusters: int = None):
+    """Launch the batched DP build: ``stage``/``btilde`` ``(S, nt, L)`` and
+    the shared ``jump_cost (L, L)`` give ``U (S, nt-1, L, B+1)`` and ``phi0
+    (S, L, B+1)``; start ``s`` equals :func:`dp_build` of that start, bit
+    for bit.  One block per start, or one cluster of C CTAs per start where
+    :func:`cluster_build_plan` takes C > 1 (``clusters`` forces C)."""
     S = stage.shape[0] if stage.dim() == 3 else -1
-    nt, L, plan = _check(stage, btilde, jump_cost, B, (S,))
+    nt, L = _check(stage, btilde, jump_cost, B, (S,))
+    smax = min(smax, B)
+    plan = cluster_build_plan(S, nt, L, B, stage.element_size(), smax, clusters,
+                              stage.device)
     U = torch.empty((S, nt - 1, L, B + 1), dtype=u_dtype(L), device=stage.device)
     phi0 = torch.empty((S, L, B + 1), dtype=stage.dtype, device=stage.device)
     with torch.cuda.device(stage.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _fn("dp_build_batched", "mioc_dp_build_batched", 11)(
+        err = _fn("dp_build_batched", "mioc_dp_build_batched", 13)(
             stage.data_ptr(), btilde.data_ptr(), jump_cost.data_ptr(), U.data_ptr(),
-            phi0.data_ptr(), S, nt, L, B, min(smax, B), plan.R, int(plan.jsmem),
-            plan.tpl, plan.K, stage.element_size(), U.element_size(), stream)
+            phi0.data_ptr(), S, nt, L, B, smax, plan.R, int(plan.jsmem), plan.tpl, plan.K,
+            plan.C, plan.H, stage.element_size(), U.element_size(), stream)
     if err != 0:
         raise RuntimeError(f"dp_build_batched launch failed: CUDA error {err}")
     dp_build_batched.launches += 1

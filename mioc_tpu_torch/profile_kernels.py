@@ -28,7 +28,14 @@ and at fishing S=32 (float64):
   (``backtrack_cuda.CHASE_TASKS``), and on the stride-0 trial wave (one set,
   K=9 caps; fishing and conv) with 8, 16 or 32 chunks (``CHASE_CHUNKS``),
   each equal to the plain walk;
-* ``dp_build_batched`` and ``chase_trials`` (Kt=9).
+* ``dp_build_batched`` and ``chase_trials`` (Kt=9), and ``chase_trials``
+  as built and without one phase's work (``phase_costs``);
+
+and ``dp_build_batched`` under every cluster size C ∈ {1, 2, 4, 8, 16}
+(``build_sweep``) at fishing S=32, conv S=8 and heat scale S=8 and S=1, in
+float64 and float32, each bit-equal to the plain build: device ms, and ms
+per call with CUDA events (the host side included), the sizes in turns.
+The rule of ``bellman_cuda.batched_build_plan`` is read off this sweep.
 
 It also samples the SM clock (``nvidia-smi --query-gpu=clocks.sm``) while
 ``dp_build`` runs back to back for a second at each shape: a kernel that
@@ -64,7 +71,8 @@ BODY_VARIANTS = {
     # name: (text in dp_build.cuh, its replacement)
     "no_U_store": [("Urow[b] = static_cast<UT>(arg);", "if (arg < 0) Urow[b] = 0;")],
     "no_relax": [("if (sh <= smax && b >= sh) {", "if (sh < 0) {")],
-    "warp_sync": [("__syncthreads();  // Φ_i complete", "__syncwarp();  // Φ_i complete")],
+    "warp_sync": [("step_barrier<CLUSTER>();  // Φ_i complete",
+                   "__syncwarp();  // Φ_i complete")],
 }
 BODY_VARIANTS["no_store_no_relax"] = BODY_VARIANTS["no_U_store"] + BODY_VARIANTS["no_relax"]
 
@@ -144,6 +152,10 @@ CHASE_VARIANTS = {
         l = nl;
         o[kk] = l;""")]),
 }
+# The same three edits of the chunked body, built as the trial-wave chase.
+for _name in ("no_maps", "no_chain_reads", "no_rewalk"):
+    CHASE_VARIANTS[f"trials_{_name}"] = ("chase_chunked.cuh", "chase_trials",
+                                         CHASE_VARIANTS[f"chunked_{_name}"][2])
 
 
 def _chase_variants() -> dict:
@@ -210,8 +222,9 @@ def timeline(lib, U, phi0, btilde, B) -> dict:
 
 def phase_costs() -> dict:
     """Device ms of chase_vec (conv and fishing), chase_batched at fishing
-    S=32 and on the fishing wave, each as built and without one phase's
-    work (CHASE_VARIANTS), launched through the same wrappers."""
+    S=32 and on the fishing wave, and chase_trials at fishing S=32, Kt=9,
+    each as built and without one phase's work (CHASE_VARIANTS), launched
+    through the same wrappers."""
     from .ops import backtrack_cuda as kc
     from .ops import bellman as tb
 
@@ -224,7 +237,7 @@ def phase_costs() -> dict:
         lib = libs[name]
 
         def fn(lib_name, symbol, argtypes):
-            if symbol not in ("mioc_chase_vec", "mioc_chase_batched"):
+            if symbol not in ("mioc_chase_vec", "mioc_chase_batched", "mioc_chase_trials"):
                 return real_fn(lib_name, symbol, argtypes)
             f = getattr(lib, symbol)
             f.argtypes = list(argtypes)
@@ -251,7 +264,7 @@ def phase_costs() -> dict:
             if v is None or v.startswith("vec"):
                 rows.setdefault("chase_vec", {})[key] = run_with(
                     v, lambda: kc.chase_vec(U, phi0, btilde, B), "chase_vec_kernel")
-            if v is None or v.startswith("chunked"):
+            if v is None or v.startswith("chunked"):  # (trials_*: chase_trials only)
                 rows.setdefault("chase_batched_wave", {})[key] = run_with(
                     v, lambda: kc.chase_batched(*wave, caps), "chunked_chase_kernel")
         out[name] = rows
@@ -265,7 +278,93 @@ def phase_costs() -> dict:
     out["fishing_S32"] = {(v or "as_built"): run_with(
         v, lambda: kc.chase_batched(U, phi0, btilde, caps), "chunked_chase_kernel")
         for v in (None, *CHASE_VARIANTS) if v is None or v.startswith("chunked")}
+    trials = torch.tensor([[B >> k for k in range(8)] + [0]] * S, dtype=torch.int32,
+                          device="cuda")
+    out["fishing_S32_trials"] = {(v or "as_built"): run_with(
+        v, lambda: kc.chase_trials(U, phi0, btilde, trials), "chunked_chase_kernel")
+        for v in (None, *CHASE_VARIANTS) if v is None or v.startswith("trials")}
     return out
+
+
+def _events_ms(fn, reps: int = 10) -> float:
+    """Median ms per call of ``fn`` with CUDA events around each call (the
+    host side of the call included)."""
+    import statistics
+
+    out = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    return statistics.median(out)
+
+
+BUILD_SWEEP = (("fishing", 32, 0), ("conv", 8, 1), ("heat", 8, 2), ("heat", 1, 2))
+CLUSTER_SIZES = (1, 2, 4, 8, 16)  # and the size the plan takes, where another
+
+
+def build_sweep() -> list:
+    """dp_build_batched under each cluster size in CLUSTER_SIZES, forced
+    (``clusters=C``), at each (shape, S) of BUILD_SWEEP in float64 and
+    float32: the plan, bit-equality to the plain build, ms per call (CUDA
+    events; the sizes in turns, ascending then descending, both medians
+    kept) and then, after every per-call time (a trace slows every later
+    launch), device ms.  A size the card does not schedule is recorded as
+    refused."""
+    from .ops import bellman as tb
+    from .ops import bellman_cuda as bc
+    from .ops import levels as lv
+
+    rows, calls = [], []
+    for name, S, i in BUILD_SWEEP:
+        _, nt, B, (kind, V), (p, beta, tau) = SHAPES[i]
+        adm = lv.bounded_sum_levels(V, 1, 1) if kind == "bounded" else lv.product_levels(V)
+        for dtype in (torch.float64, torch.float32):
+            rng = np.random.default_rng(10 + i)
+            grad = torch.as_tensor(rng.normal(size=(S, nt, adm.M)), dtype=dtype,
+                                   device="cuda")
+            u_old = torch.as_tensor(adm.levels[rng.integers(0, adm.L, size=(S, nt))],
+                                    dtype=dtype, device="cuda")
+            jump = torch.as_tensor(lv.jump_cost_table(adm.levels, p, beta=beta), dtype=dtype,
+                                   device="cuda")
+            smax = tb.max_budget_use(adm.levels)
+            stage, btilde = tb.stage_tables(grad, u_old, adm.levels, tau)
+            U_p, phi_p = tb.build_tables_batched_plain(stage, btilde, jump, B, smax)
+            item = stage.element_size()
+            taken = bc.cluster_build_plan(S, nt, adm.L, B, item, smax).C
+            sizes = tuple(sorted(set(CLUSTER_SIZES) | {taken}))
+            res = {}
+            for C in sizes + sizes[::-1]:
+                try:
+                    plan = bc.cluster_build_plan(S, nt, adm.L, B, item, smax, clusters=C)
+                except RuntimeError as e:  # a cluster size this card does not schedule
+                    res[C] = {"refused": str(e)}
+                    continue
+
+                def call(C=C, a=(stage, btilde, jump, B, smax)):
+                    return bc.dp_build_batched(*a, clusters=C)
+
+                U, phi = call()
+                if not (torch.equal(U, U_p) and torch.equal(phi, phi_p)):
+                    raise RuntimeError(f"{name} S={S} {dtype}: dp_build_batched at C={C} "
+                                       "differs from the plain build")
+                r = res.setdefault(C, {"plan": plan._asdict(), "call_ms": [],
+                                       "clusters_at_once": None if C == 1 else
+                                       bc.clusters_at_once(S, nt, adm.L, B, item, smax, C)})
+                r["call_ms"].append(_events_ms(call))
+                if len(r["call_ms"]) == 1:
+                    calls.append((r, call))
+            rows.append({"shape": name, "S": S, "dtype": str(dtype).replace("torch.", ""),
+                         "nt": nt, "L": adm.L, "B": B, "smax": smax,
+                         "rule_C": bc.batched_build_plan(S, nt, adm.L, B, item, smax).C,
+                         "taken_C": taken, "by_C": res})
+    for r, call in calls:
+        r["device_ms"] = device_ms(call, "dp_build_kernel", reps=10)
+    return rows
 
 
 def device_ms(fn, kernel: str, reps: int = 20):
@@ -460,7 +559,7 @@ def batched_section() -> dict:
     out = {"S": S, "dp_build_batched_ms": device_ms(
         lambda: bc.dp_build_batched(stage, btilde, jump, B, smax), "dp_build_kernel"),
            "chase_trials_ms": device_ms(lambda: kc.chase_trials(U, phi0, btilde, trials),
-                                        "chase_trials_kernel"),
+                                        "chunked_chase_kernel"),
            "chase_batched_sets": [], "chase_batched_wave": {}}
     saved = kc.CHASE_TASKS, kc.CHASE_CHUNKS
     try:
@@ -545,10 +644,12 @@ def main() -> int:
     print(smi, flush=True)
     _kernels.build_all(_kernels.SOURCES + _kernels.PROBES)
     host = host_side()
+    sweep = build_sweep()  # its per-call times before the first trace
     probe = _kernels.library("launch_probe").mioc_launch_probe
     host["empty_device_ms"] = device_ms(
         lambda: probe(1, 32, 1024, torch.cuda.current_stream().cuda_stream), "empty_kernel")
     print(json.dumps({"host_side_us": host, "nvidia_smi": smi}), flush=True)
+    print(json.dumps({"build_sweep": sweep, "nvidia_smi": smi}), flush=True)
     print(json.dumps({"batched": batched_section(), "nvidia_smi": smi}), flush=True)
     print(json.dumps({"phase_costs": phase_costs(), "nvidia_smi": smi}), flush=True)
     bodies = {name: _body_variant(name) for name in BODY_VARIANTS}

@@ -45,7 +45,7 @@ from ..ops.tv import tv_p
 from ..utils.init import rand_func
 from ..utils.logging import IterationLog
 
-__all__ = ["TRMParameters", "TRMResult", "trm_solve", "TRM"]
+__all__ = ["TRMParameters", "TRMResult", "trm_solve", "TRM", "dp_route"]
 
 # DP backends of the JAX package that this port does not have yet, with the
 # ROADMAP.md item (queue A) that ports them.
@@ -55,14 +55,44 @@ _UNPORTED_BACKENDS = {
 }
 
 
+def dp_route(dp_backend: Optional[str], use_pallas: Optional[bool], device) -> str:
+    """The DP route of a solve on ``device``, from the JAX package's two
+    spellings: ``dp_backend`` where given, else ``use_pallas``.
+
+    * ``"pallas"``, ``True`` or neither: the device's route, the CUDA
+      kernels on the card and the plain versions on the CPU; returns
+      ``"pallas"``;
+    * ``"scan"`` or ``False``: the plain versions, which the CPU runs
+      (returns ``"scan"``); on the card they raise ``ValueError``, since no
+      solve there runs them;
+    * ``"temporal"``, ``"sharded"``: ``NotImplementedError`` naming their
+      ROADMAP.md item; any other name: ``ValueError``.
+
+    Both routes compute the same tables and chases, bit for bit."""
+    name = dp_backend
+    if name is None:
+        name = "scan" if use_pallas is False else "pallas"
+    if name in _UNPORTED_BACKENDS:
+        raise NotImplementedError(f"dp_backend={name!r} is not ported yet: ROADMAP.md "
+                                  f"{_UNPORTED_BACKENDS[name]}")
+    if name not in ("pallas", "scan"):
+        raise ValueError(f"Unknown dp_backend {name!r}")
+    if name == "scan" and torch.device(device).type == "cuda":
+        raise ValueError("dp_backend='scan' (use_pallas=False) selects the plain versions, "
+                         "which no solve runs on the card; the CUDA kernels are its route")
+    return name
+
+
 @dataclass
 class TRMParameters:
     """Algorithmic parameters (``TRM_parameters``, ``multi-trust.jl:26-34``).
 
-    Differences from ``mioc_tpu``'s: there is no ``use_pallas`` and no
-    ``mesh``.  The DP route follows the tensors' device (the CUDA kernels on
-    the card, the plain version on the CPU); ``dp_backend`` is ``None`` or
-    names an unported JAX backend, which raises ``NotImplementedError``.
+    ``use_pallas`` and ``dp_backend`` take the JAX package's values and
+    choose the DP route by :func:`dp_route`: ``"pallas"``, ``True`` or
+    neither run the CUDA kernels on the card and the plain versions on the
+    CPU; ``"scan"`` or ``False`` the plain versions, on the CPU only;
+    ``"temporal"`` and ``"sharded"`` raise ``NotImplementedError``.  The
+    difference from ``mioc_tpu``'s: there is no ``mesh``.
     """
 
     beta: float = 0.001      # weight of the TV_p term (β)
@@ -73,7 +103,8 @@ class TRMParameters:
     maxiter: int = 1000      # max outer iterations
     log: bool = False        # print the iteration table
     compat_pinf: bool = False  # reproduce the reference's p=inf jump cost
-    dp_backend: Optional[str] = None
+    use_pallas: Optional[bool] = None  # the DP route (dp_route): None/True kernels
+    dp_backend: Optional[str] = None   # "pallas" | "scan" | "temporal" | "sharded"
     metrics_path: Optional[str] = None  # jsonl per-iteration metrics
     checkpoint_path: Optional[str] = None  # npz snapshot per outer iteration
     resume_from: Optional[str] = None   # restart from a checkpoint npz
@@ -111,12 +142,7 @@ def trm_solve(obj, par: TRMParameters = None, x0=None, seed: Optional[int] = Non
     """Run the TRM on ``obj`` (a LazyObjective with an admissible set) on
     ``obj.device``."""
     par = par or TRMParameters()
-    if par.dp_backend is not None:
-        if par.dp_backend in _UNPORTED_BACKENDS:
-            raise NotImplementedError(
-                f"dp_backend={par.dp_backend!r} is not ported yet: ROADMAP.md "
-                f"{_UNPORTED_BACKENDS[par.dp_backend]}")
-        raise ValueError(f"Unknown dp_backend {par.dp_backend!r}")
+    dp_route(par.dp_backend, par.use_pallas, obj.device)
     nt, dt = obj.nt, obj.tau
     adm = obj.admissible
     if adm is None or adm.L == 0:

@@ -22,13 +22,15 @@ folds, so a start of a multistart, or a trial of a wave, has the bits of the
 single evaluation, and the speculative wave makes the sequential loop's
 decisions.
 
-DP route: the tables are built and chased where the tensors are.  On the
-card a single solve builds with ``dp_build`` and chases its sequential inner
-loop with ``chase`` and its trial wave (``wave_chase="vmap"``) with
+DP route: the tables are built and chased where the tensors are
+(``use_pallas``/``dp_backend`` as :func:`~.trm.dp_route` reads them).  On
+the card a single solve builds with ``dp_build`` and chases its sequential
+inner loop with ``chase`` and its trial wave (``wave_chase="vmap"``) with
 ``chase_batched`` on the tables expanded K-fold (stride 0, no copy); a
 multistart builds with ``dp_build_batched``, chases its inner loop with
-``chase_batched`` (a cap per start) and its wave (``"trials"``) with
-``chase_trials``.  On the CPU the same calls take the plain versions.
+``chase_batched`` (a cap per start) and its wave with ``chase_trials`` (S
+table sets of K caps each, whichever ``wave_chase``).  On the CPU the same
+calls take the plain versions.
 """
 
 from __future__ import annotations
@@ -53,7 +55,7 @@ from ..ops.bellman import (
 from ..ops.levels import jump_cost_table
 from ..ops.tv import iv_rows, tv_rows
 from ..utils.init import rand_func
-from .trm import _profiler
+from .trm import _profiler, dp_route
 
 __all__ = ["DeviceTRMResult", "make_device_trm", "trm_solve_device",
            "multistart_solve_device"]
@@ -129,7 +131,8 @@ def _any(flags) -> bool:
     return bool(flags.any())
 
 
-def make_device_trm(obj, par, outer_chunk=None, speculative: bool = False,
+def make_device_trm(obj, par, use_pallas: Optional[bool] = None,
+                    outer_chunk=None, speculative: bool = False,
                     dp_backend: Optional[str] = None, mesh=None,
                     wave_chase: str = "vmap", outer_unroll: int = 1,
                     inner_unroll: int = 1):
@@ -150,22 +153,25 @@ def make_device_trm(obj, par, outer_chunk=None, speculative: bool = False,
     at most ``kmax`` trials): the K trials are chased from the same tables,
     evaluated in one batched forward sweep, and the first trial that meets
     the sequential loop's exit condition is selected.  The counters are the
-    sequential-equivalent ones.  ``wave_chase`` selects the wave's chase:
-    ``"vmap"`` (the single-solve default) chases K copies of the tables with
-    the batched chase; ``"trials"`` (the multistart form) chases the S·K caps
-    against the shared tables with the trial-wave chase.
+    sequential-equivalent ones.  ``wave_chase`` selects a single solve's
+    wave chase: ``"vmap"`` (the single-solve default) chases K views of the
+    tables with the batched chase; ``"trials"`` (the multistart form) the K
+    caps with the trial-wave chase.  A wave of S > 1 starts chases S table
+    sets of K caps each with the trial-wave chase under either name, with
+    no copy of a table.
 
     ``outer_unroll``/``inner_unroll`` run that many guarded steps between
     host reads (a guarded step selects the old carry where its condition
     fails, so results are bit-identical to 1).
 
-    ``dp_backend="sharded"`` and ``mesh`` are not ported and raise
-    ``NotImplementedError``."""
-    if dp_backend == "sharded" or mesh is not None:
-        raise NotImplementedError(
-            f"the sharded DP backend and device meshes are not ported yet: {_UNPORTED}")
-    if dp_backend is not None:
-        raise ValueError(f"Unknown dp_backend {dp_backend!r}")
+    ``use_pallas`` and ``dp_backend`` (default: ``par``'s) choose the DP
+    route by :func:`~.trm.dp_route`, in the JAX package's argument order;
+    ``dp_backend="sharded"``, ``"temporal"`` and ``mesh`` are not ported and
+    raise ``NotImplementedError``."""
+    if mesh is not None:
+        raise NotImplementedError(f"device meshes are not ported yet: {_UNPORTED}")
+    dp_route(par.dp_backend if dp_backend is None else dp_backend,
+             par.use_pallas if use_pallas is None else use_pallas, obj.device)
     if wave_chase not in ("vmap", "trials"):
         raise ValueError(f"wave_chase must be 'vmap' or 'trials', got {wave_chase!r}")
     adm = obj.admissible
@@ -218,15 +224,11 @@ def make_device_trm(obj, par, outer_chunk=None, speculative: bool = False,
         """The K trials of every start → ``(S, K, nt, nx)``."""
         if not batched:
             U, phi0, btilde = U[None], phi0[None], btilde[None]
-        if wave_chase == "trials":
+        if wave_chase == "trials" or S > 1:  # S table sets of K caps each
             return backtrack_trials(U, phi0, btilde, levels, B_sched.expand(S, K))[0]
-        tables = [t[:, None].expand(S, K, *t.shape[1:]) for t in (U, phi0, btilde)]
-        if S > 1:  # K copies of each start's tables, materialised
-            tables = [t.reshape(S * K, *t.shape[2:]) for t in tables]
-        else:      # K views of one table set (start stride 0)
-            tables = [t[0] for t in tables]
-        u = backtrack_batched(*tables, levels, B_sched.repeat(S))[0]
-        return u.reshape(S, K, *u.shape[1:])
+        # K views of one table set (start stride 0)
+        tables = [t[0].expand(K, *t.shape[1:]) for t in (U, phi0, btilde)]
+        return backtrack_batched(*tables, levels, B_sched)[0][None]
 
     def init_carry(x0s):
         S = x0s.shape[0]
@@ -425,6 +427,7 @@ def _profiled(par, device, fn):
 
 
 def trm_solve_device(obj, par=None, x0=None, seed: Optional[int] = None,
+                     use_pallas: Optional[bool] = None,
                      outer_chunk="auto", progress=None,
                      speculative: Optional[bool] = None,
                      dp_backend: Optional[str] = None, mesh=None,
@@ -441,13 +444,12 @@ def trm_solve_device(obj, par=None, x0=None, seed: Optional[int] = None,
     ``speculative=None`` enables the trial wave when the objective declares
     its batched sweeps bit-exact per row (``_speculative_default``, else
     ``_batched_sweeps_bitexact``); the wave chases with the objective's
-    ``_wave_chase_default`` (``"vmap"``)."""
+    ``_wave_chase_default`` (``"vmap"``).  ``use_pallas``, ``dp_backend``
+    and ``mesh`` as in :func:`make_device_trm`, at the JAX package's
+    positions."""
     from .trm import TRMParameters
 
     par = par or TRMParameters()
-    if par.dp_backend == "sharded":
-        raise NotImplementedError(
-            f"dp_backend='sharded' is not ported yet: {_UNPORTED}")
     if x0 is None and par.resume_from:
         from ..utils.io import load_checkpoint
 
@@ -457,8 +459,8 @@ def trm_solve_device(obj, par=None, x0=None, seed: Optional[int] = None,
     if speculative is None:
         speculative = bool(getattr(obj, "_speculative_default",
                                    getattr(obj, "_batched_sweeps_bitexact", False)))
-    run = make_device_trm(obj, par, outer_chunk=outer_chunk, speculative=speculative,
-                          dp_backend=dp_backend, mesh=mesh,
+    run = make_device_trm(obj, par, use_pallas=use_pallas, outer_chunk=outer_chunk,
+                          speculative=speculative, dp_backend=dp_backend, mesh=mesh,
                           wave_chase=getattr(obj, "_wave_chase_default", "vmap"),
                           outer_unroll=outer_unroll, inner_unroll=inner_unroll)
     on_segment = None
@@ -476,8 +478,9 @@ def trm_solve_device(obj, par=None, x0=None, seed: Optional[int] = None,
         single=True))
 
 
-def multistart_solve_device(obj, par, x0s, mesh=None, outer_chunk=None,
-                            progress=None, speculative: Optional[bool] = None,
+def multistart_solve_device(obj, par, x0s, mesh=None, use_pallas: Optional[bool] = None,
+                            outer_chunk=None, progress=None,
+                            speculative: Optional[bool] = None,
                             dp_backend: Optional[str] = None,
                             outer_unroll: Optional[int] = None,
                             inner_unroll: Optional[int] = None) -> DeviceTRMResult:
@@ -490,11 +493,14 @@ def multistart_solve_device(obj, par, x0s, mesh=None, outer_chunk=None,
     chases with the trial-wave chase (``wave_chase="trials"``).
     ``outer_chunk`` (``None``, an int or ``"auto"``) segments like
     :func:`make_device_trm`; a segment ends when ALL starts have stopped.
-    ``mesh`` and ``dp_backend="sharded"`` are not ported."""
+    ``use_pallas`` and ``dp_backend`` as in :func:`make_device_trm`, at the
+    JAX package's positions; ``mesh`` and ``dp_backend="sharded"`` are not
+    ported."""
     if speculative is None:
         speculative = bool(getattr(obj, "_speculative_multistart", False))
-    run = make_device_trm(obj, par, outer_chunk=outer_chunk, speculative=speculative,
-                          dp_backend=dp_backend, mesh=mesh, wave_chase="trials",
+    run = make_device_trm(obj, par, use_pallas=use_pallas, outer_chunk=outer_chunk,
+                          speculative=speculative, dp_backend=dp_backend, mesh=mesh,
+                          wave_chase="trials",
                           outer_unroll=outer_unroll or 1,
                           inner_unroll=inner_unroll or 1)
     x0s = torch.as_tensor(np.asarray(x0s), dtype=obj.dtype, device=obj.device)

@@ -1,21 +1,24 @@
-"""The redesigned batched chase and vec chase, on the CPU.
+"""The redesigned batched, trial-wave and vec chases, on the CPU.
 
-* A numpy model of ``csrc/chase_batched.cu`` (the body of
-  ``csrc/chase_chunked.cuh`` over G table sets and R rows): state maps per
-  (set, chunk) with a sentinel, a chain per row with its serial tail, the
-  re-walk of each (set, chunk) for the rows of that set still on it.  Held
-  against ``bellman.backtrack_batched_plain`` and the JAX package's chases:
-  the scan ``backtrack`` vmapped over the rows (every case, the index rule
-  for a budget below 0 included) and ``_backtrack_batched_impl`` in
-  interpret mode (finite seeds, caps ≤ B, Pallas-built tables).
+* A numpy model of ``csrc/chase_chunked.cuh`` over G table sets and R rows,
+  row r on set r / (R/G) (``chase_batched.cu``: G = 1 or G = R;
+  ``chase_trials.cu``: G = S sets of Kt rows): state maps per (set, chunk)
+  with a sentinel, a chain per row with its serial tail, the re-walk of
+  each (set, chunk) for the rows of that set still on it.  Held against
+  ``bellman.backtrack_batched_plain`` / ``backtrack_trials_plain`` and the
+  JAX package's chases: the scan ``backtrack`` vmapped over the rows (every
+  case, the index rule for a budget below 0 included) and
+  ``_backtrack_batched_impl`` / ``backtrack_pallas_trials`` in interpret
+  mode (Pallas-built tables, float32).
 * A numpy model of ``csrc/chase_vec.cu``'s cluster schedule: slices per CTA,
   sub-chunks, rounds when the table does not fit, planes in place when one
   does not, the chain with its entry states and sentinel, and the warp
   walkers' lane-collected stores.  Held against ``backtrack_plain`` and the
   JAX package's ``_bt_kernel_vec`` in interpret mode.
 * The plan helpers at the chip shapes and the edge shapes
-  (``backtrack_cuda.chase_plan`` with sets and rows, ``vec_plan``) and the
-  table-set rule of the batched wrapper (``table_sets``).
+  (``backtrack_cuda.chase_plan`` with sets and rows, the trial wave's
+  ``sets=S, rows=S·Kt`` included, ``vec_plan``) and the table-set rule of
+  the batched wrapper (``table_sets``).
 
 The CUDA kernels themselves are held against the plain versions on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
@@ -132,10 +135,11 @@ def _rewalk(U, btilde, s, k0, kn):
 # -------------------------------------------------- model of the batched chase
 
 
-def batched_chase_model(U, phi0, btilde, caps, T, G):
+def batched_chase_model(U, phi0, btilde, caps, T, G, pr=1):
     """numpy model of ``csrc/chase_chunked.cuh`` over G table sets and R =
     len(caps) rows: ``U (G, nt-1, L, B+1)``, ``btilde (G, nt, L)`` (set g),
-    ``phi0 (R, L, B+1)`` (row r), row r on set 0 (G = 1) or set r (G = R).
+    ``phi0 (R/pr, L, B+1)`` (row r reads plane r / pr), row r on set g(r) =
+    r / (R/G), so set g holds rows g·(R/G) … (g+1)·(R/G)-1.
 
     A: per task (g, c), the chunk's state maps E[g, c].
     B: per row, the seed, the chain over E[g(r)], entry[r, c], and at a
@@ -144,7 +148,8 @@ def batched_chase_model(U, phi0, btilde, caps, T, G):
        first_bad lies beyond c.
     """
     R = len(caps)
-    assert G in (1, R)
+    assert R % G == 0
+    RG = R // G
     nt = btilde.shape[1]
     steps = nt - 1
     C = -(-steps // T) if steps > 0 else 0
@@ -154,8 +159,8 @@ def batched_chase_model(U, phi0, btilde, caps, T, G):
     entry = np.zeros((R, C), dtype=np.int64)
     first_bad = np.full(R, C)
     for r in range(R):
-        g = 0 if G == 1 else r
-        s = _seed(phi0[r], caps[r])
+        g = r // RG
+        s = _seed(phi0[r // pr], caps[r])
         out[r, 0] = s // U.shape[-1]
         for c in range(C):
             entry[r, c] = s
@@ -166,7 +171,7 @@ def batched_chase_model(U, phi0, btilde, caps, T, G):
             s = int(E[g, c][s])
     for t in reversed(range(G * C)):
         g, c = divmod(t, C)
-        for r in ([g] if G == R and G > 1 else range(R)):
+        for r in range(g * RG, (g + 1) * RG):
             if first_bad[r] > c:
                 kn = min(T, steps - c * T)
                 out[r, c * T + 1:c * T + kn + 1] = _rewalk(U[g], btilde[g], entry[r, c],
@@ -270,6 +275,103 @@ def test_batched_model_equals_pallas_batched_kernel(L, S, nt, B, T):
                                         jnp.asarray(caps), interpret=True)
     got, _ = batched_chase_model(U_t.numpy(), phi_t.numpy(), np.asarray(bt), caps, T, G=S)
     np.testing.assert_array_equal(got, np.asarray(i_p))
+
+
+# ------------------------------------------------- the trial wave (G = S sets)
+
+TRIAL_CASES = [
+    # name, S table sets, Kt caps per set, nt, B, T: the batched cases' shapes
+    # (one chunk, ragged chunks, one-step chunks, L = 1, B = 0, the fishing
+    # plan's T, heat) with several caps per set.
+    ("sos1", 3, 4, 2, 5, 4),
+    ("sos1", 3, 6, 90, 14, 7),
+    ("multi", 2, 5, 40, 12, 1),
+    ("L1", 2, 3, 30, 4, 6),
+    ("sos1", 2, 4, 50, 0, 9),
+    ("sos1", 4, 9, 300, 30, 128),
+    ("heat", 2, 4, 25, 12, 5),
+]
+
+
+def _trial_caps(B, S, Kt, seed):
+    """Kt caps per set with -1, 0, B and past B in every set, the rest drawn
+    from [-2, B+3], each set's in another order: rows of other sets and of
+    other sentinels side by side."""
+    rng = np.random.default_rng(seed)
+    caps = np.empty((S, Kt), np.int32)
+    for g in range(S):
+        row = [-1, 0, B, B + 1 + g][:Kt]
+        row += list(rng.integers(-2, B + 4, size=Kt - len(row)))
+        caps[g] = rng.permutation(row)
+    return caps
+
+
+@pytest.mark.parametrize("far", [False, True])
+@pytest.mark.parametrize("name,S,Kt,nt,B,T", TRIAL_CASES)
+def test_trials_model_equals_plain_and_jax(name, S, Kt, nt, B, T, far):
+    """G = S sets of Kt rows (R = S·Kt), phi0 of row r is set r / Kt's:
+    the trial-wave chase, equal to the plain trial chase and to the JAX
+    scan chase of each row; with ``far`` the last set's seed is +inf."""
+    s, U, phi0, bt = _sets_of_tables(name, S, nt, B, seed=5 * nt + B, far=far)
+    caps = _trial_caps(B, S, Kt, seed=nt)
+    got, _ = batched_chase_model(U, phi0, bt, caps.reshape(-1), T, G=S, pr=Kt)
+    plain = tb.backtrack_trials_plain(torch.as_tensor(U), torch.as_tensor(phi0),
+                                      torch.as_tensor(bt), torch.as_tensor(caps))
+    np.testing.assert_array_equal(got.reshape(S, Kt, nt), plain.numpy())
+    rows = [np.repeat(a, Kt, 0) for a in (U, phi0, bt)]
+    np.testing.assert_array_equal(got, _jax_rows(s.levels, *rows, caps.reshape(-1)))
+
+
+def test_trials_model_sentinel_mid_chain():
+    """The synthetic tables of the batched test as two sets of four caps:
+    in each set the rows at cap -1 meet the sentinel in their fifth chunk;
+    the other rows of the set, on the same maps, are not disturbed."""
+    rng = np.random.default_rng(11)
+    nt, L, B, T, S = 60, 3, 6, 8, 2
+    U = rng.integers(0, L, size=(S, nt - 1, L, B + 1)).astype(np.int8)
+    bt = rng.integers(0, 3, size=(S, nt, L)).astype(np.int32)
+    bt[:, :35] = 0
+    bt[:, 35:] = np.maximum(bt[:, 35:], 1)
+    phi0 = rng.normal(size=(S, L, B + 1))
+    caps = np.array([[-1, B, 3, -1], [2, -1, B + 2, 0]], np.int32)
+    got, first_bad = batched_chase_model(U, phi0, bt, caps.reshape(-1), T, G=S, pr=4)
+    assert [first_bad[r] for r in (0, 3, 5)] == [35 // T] * 3
+    plain = tb.backtrack_trials_plain(torch.as_tensor(U), torch.as_tensor(phi0),
+                                      torch.as_tensor(bt), torch.as_tensor(caps))
+    np.testing.assert_array_equal(got.reshape(S, 4, nt), plain.numpy())
+    levels = np.arange(L, dtype=float)[:, None]
+    rows = [np.repeat(a, 4, 0) for a in (U, phi0, bt)]
+    np.testing.assert_array_equal(got, _jax_rows(levels, *rows, caps.reshape(-1)))
+
+
+@pytest.mark.parametrize("L,S,nt,B,T", [(3, 3, 140, 23, 16), (36, 2, 12, 12, 5)])
+def test_trials_model_equals_pallas_trials_kernel(L, S, nt, B, T):
+    """The TPU kernel ``_bt_kernel_trials`` in interpret mode
+    (``backtrack_pallas_trials`` under ``jax.vmap``) on Pallas-built tables
+    (float32) against the model on the same tables: caps 0, B and between
+    per set, in another order in each set.  Cap -1 and caps past B are held
+    against the plain and the scan chase only (``test_trials_model_equals_
+    plain_and_jax``): where a walk leaves [0, B] the Pallas kernel reads the
+    padded tables' budget lanes, and the port follows the scan chase."""
+    s = {3: SETS["sos1"], 36: SETS["heat"]}[L]()
+    rng = np.random.default_rng(L + nt + 1)
+    grad = rng.normal(size=(S, nt, s.M))
+    u_old = s.levels[rng.integers(0, s.L, size=(S, nt))]
+    st, bt = jax.vmap(lambda g, u: jb.stage_tables(g, u, jnp.asarray(s.levels),
+                                                   0.05))(grad, u_old)
+    jump = jump_cost_table(s.levels, p=np.inf, beta=1e-3)
+    U_p, phi_p = build_tables_pallas_batched(jnp.asarray(st, jnp.float32), bt,
+                                             jnp.asarray(jump, jnp.float32), B,
+                                             jb.max_budget_use(s.levels), interpret=True)
+    U_t, phi_t = interop.tables_from_pallas(U_p, phi_p, nt=nt, L=L, B=B, device="cpu")
+    caps = np.array([rng.permutation([B // 4, 0, B, B // 2, 1]) for _ in range(S)],
+                    np.int32)
+    levels = jnp.asarray(s.levels)
+    _, i_p = jax.vmap(lambda U, p, b, c: bp.backtrack_pallas_trials(
+        U, p, b, levels, c, interpret=True))(U_p, phi_p, jnp.asarray(bt), caps)
+    got, _ = batched_chase_model(U_t.numpy(), phi_t.numpy(), np.asarray(bt),
+                                 caps.reshape(-1), T, G=S, pr=caps.shape[1])
+    np.testing.assert_array_equal(got.reshape(caps.shape + (nt,)), np.asarray(i_p))
 
 
 # ------------------------------------------------ model of the cluster chase
@@ -457,9 +559,24 @@ def test_chase_plan_sets_fishing(sets, C, T):
     assert plan.scratch == sets * C * 3 * 171 + sets * C + sets
 
 
+@pytest.mark.parametrize("nt,L,B,S,C,T", [
+    (1024, 3, 170, 32, 8, 128), (2048, 5, 128, 8, 32, 64), (1024, 36, 204, 8, 38, 27),
+    (1, 3, 9, 32, 0, 1), (2, 5, 4, 8, 1, 1), (300, 1, 7, 8, 30, 10), (300, 3, 0, 32, 8, 38)])
+def test_chase_plan_trial_wave(nt, L, B, S, C, T):
+    """The trial wave's plan, ``sets=S, rows=S·Kt`` (Kt = 9), at the chip
+    shapes (fishing S=32, conv and heat scale S=8) and the edge shapes: the
+    chunks of the batched chase over S sets (the rows do not change them),
+    scratch for one set of maps per start and each row's entries."""
+    Kt = 9
+    plan = kc.chase_plan(nt, L, B, 1, sets=S, rows=S * Kt)
+    assert (plan.C, plan.T) == (C, T)
+    assert plan[:4] == kc.chase_plan(nt, L, B, 1, sets=S, rows=S)[:4]
+    assert plan.scratch == S * C * L * (B + 1) + S * Kt * C + S * Kt
+
+
 @pytest.mark.parametrize("nt", [1, 2, 100, 1024, 100000])
 @pytest.mark.parametrize("L,B,ub", [(1, 0, 1), (5, 128, 1), (36, 204, 1), (130, 400, 4)])
-@pytest.mark.parametrize("sets,rows", [(1, 9), (32, 32), (288, 288)])
+@pytest.mark.parametrize("sets,rows", [(1, 9), (32, 32), (288, 288), (32, 288), (8, 1024)])
 def test_chase_plan_takes_every_batch(nt, L, B, ub, sets, rows):
     """No shape or batch is refused: C·T covers the steps, about CHASE_TASKS
     tasks where the sets allow, the scratch of G·C·P + R·C + R."""

@@ -80,14 +80,53 @@ def test_unported_parts_raise(argv, item):
         cli.main(argv + ["--device", "cpu"])
 
 
-def test_dp_backend_flag():
-    assert cli._dp_backend("pallas", torch.device("cpu")) is None
-    assert cli._dp_backend("scan", torch.device("cpu")) is None
-    assert cli._dp_backend(None, torch.device("cuda")) is None
+@pytest.mark.parametrize("argv", [["fishing", "--n", "32"],
+                                  ["fishing", "--n", "32", "--multistart", "1"],
+                                  ["fishing", "--n", "32", "--device-loop"],
+                                  ["fishing", "--n", "32", "--device-loop", "--multistart", "2"]],
+                         ids=["single", "multistart-1", "device-loop", "device-multistart"])
+def test_runs_the_jax_cli_plots_raise_before_solving(monkeypatch, argv):
+    """Where the JAX CLI would plot (it holds an objective: a single solve,
+    any device-loop run), a run without --no-plot raises naming item 7
+    before any objective is built."""
+    monkeypatch.setattr(cli, "build_objective", lambda *a, **k: pytest.fail("solved"))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 7"):
+        cli.main(argv + ["--no-log", "--device", "cpu"])
+
+
+def test_host_multistart_without_no_plot_runs(capsys):
+    """The host-loop multistart keeps no objective, so the JAX CLI plots
+    nothing after it; the port runs it to the same JSON line."""
+    argv = ["fishing", "--n", "48", "--multistart", "2", "--no-log", "--seed", "0"]
+    assert jcli.main(argv) == 0
+    want = _json_line(capsys.readouterr().out)
+    assert cli.main(argv + ["--device", "cpu"]) == 0
+    got = _json_line(capsys.readouterr().out)
+    for key in ("problem", "n", "iterations", "f_evals", "df_evals", "converged"):
+        assert got[key] == want[key], key
+    np.testing.assert_allclose(got["J"], want["J"], rtol=1e-12)
+
+
+def test_dp_backend_flag(capsys):
+    """The flag's values follow the solvers' rule (``solvers.trm.dp_route``):
+    ``pallas`` and ``scan`` solve on the CPU, to the same result; ``scan``
+    is refused for the card before anything is built; the unported backends
+    name their item."""
+    from mioc_tpu_torch.solvers.trm import dp_route
+
+    argv = ["fishing", "--n", "32", "--device", "cpu"] + BASE
+    lines = []
+    for name in ("pallas", "scan"):
+        assert cli.main(argv + ["--dp-backend", name]) == 0
+        lines.append(_json_line(capsys.readouterr().out))
+    assert lines[0] == {**lines[1], "wall_s": lines[0]["wall_s"],
+                        "timings": lines[0]["timings"]}
+    assert dp_route("pallas", None, torch.device("cuda")) == "pallas"
+    assert dp_route(None, None, torch.device("cuda")) == "pallas"
     with pytest.raises(ValueError, match="plain versions"):
-        cli._dp_backend("scan", torch.device("cuda"))
+        dp_route("scan", None, torch.device("cuda"))
     with pytest.raises(NotImplementedError, match="item 6"):
-        cli._dp_backend("sharded", torch.device("cpu"))
+        dp_route("sharded", None, torch.device("cpu"))
 
 
 def test_cli_defaults_to_cuda(monkeypatch):

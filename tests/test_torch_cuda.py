@@ -186,8 +186,13 @@ def test_batched_wrappers_refuse(cuda_device):
     adm = product_levels([list(range(6))] * 2)
     stage, btilde, jump, smax = _batched_tables(adm, 2, 20, 12, torch.float64,
                                                 cuda_device)
+    # One block per start cannot hold 2·36·501 float64 Φ entries; the plan's
+    # cluster of budget slices can.
     with pytest.raises(ValueError, match="shared memory"):
-        dp_build_batched(stage, btilde, jump, 500, smax)
+        dp_build_batched(stage, btilde, jump, 500, smax, clusters=1)
+    U5, phi5 = dp_build_batched(stage, btilde, jump, 500, smax)
+    U5p, phi5p = tb.build_tables_batched_plain(stage, btilde, jump, 500, smax)
+    assert torch.equal(U5, U5p) and torch.equal(phi5, phi5p)
     with pytest.raises(TypeError):
         dp_build_batched(stage, btilde.long(), jump, 12, smax)
     U, phi0 = dp_build_batched(stage, btilde, jump, 12, smax)
@@ -543,3 +548,99 @@ def test_redesigned_chases_edges_equal_plain(cuda_device, name, levels, nt, B):
     assert torch.equal(chase_batched(*(t.contiguous() for t in expanded), caps_t), want)
     for k, cap in enumerate(caps):
         assert torch.equal(chase_vec(U, phi0, btilde, cap), want[k]), cap
+
+
+# ------------------------ redesigned trial-wave chase and cluster batched build
+
+
+@pytest.mark.parametrize("far", [False, True])
+@pytest.mark.parametrize("name,levels,S,nt,B", [
+    ("sos1", lambda: bounded_sum_levels([[0, 1]] * 3, 1, 1), 5, 300, 40),
+    ("multi", lambda: product_levels([[-2, -1, 0, 1, 2]]), 3, 257, 17),
+    ("L130", lambda: product_levels([list(range(13)), list(range(10))]), 2, 40, 30),
+    ("heat", lambda: product_levels([list(range(6))] * 2), 3, 1000, 204),
+])
+def test_chase_trials_mixed_caps_equal_plain(cuda_device, name, levels, S, nt, B, far):
+    """The trial wave over S sets of Kt caps, with -1, 0, B and caps past B
+    mixed in each set in another order, so that rows of other sets and other
+    sentinels share one launch; with ``far`` every set's phi0 is +inf."""
+    from mioc_tpu_torch.ops.backtrack_cuda import chase_trials
+
+    adm = levels()
+    make = _nonadmissible_first_row if far else _tables
+    tabs = [make(adm, nt, B, torch.float64, cuda_device, seed=k) for k in range(S)]
+    stage = torch.stack([t[0] for t in tabs])
+    btilde = torch.stack([t[1] for t in tabs])
+    U, phi0 = tb.build_tables_batched(stage, btilde, tabs[0][2], B, tabs[0][3])
+    rng = np.random.default_rng(S + nt)
+    base = [-1, 0, B, B + 3, B // 2, 1, -4, B // 3, 2]
+    caps = torch.tensor(np.array([rng.permutation(base) for _ in range(S)]),
+                        dtype=torch.int32, device=cuda_device)
+    got = chase_trials(U, phi0, btilde, caps)
+    assert torch.equal(got, tb.backtrack_trials_plain(U, phi0, btilde, caps.cpu()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name,levels,S,nt,B", [
+    ("sos1", lambda: bounded_sum_levels([[0, 1]] * 3, 1, 1), 3, 300, 40),
+    ("multi", lambda: product_levels([[-2, -1, 0, 1, 2]]), 2, 257, 17),
+    ("heat", lambda: product_levels([list(range(6))] * 2), 2, 300, 204),
+])
+def test_cluster_build_every_size_bit_equal_plain(cuda_device, name, levels, S, nt, B,
+                                                  dtype):
+    """The batched build at every cluster size the plan takes (1 … 16, the
+    card permitting), uneven slices, halos wider than a slice (heat at 16
+    CTAs: width 13, halo 10; multi at 16: width 2, halo 4), bit-equal to the
+    plain build."""
+    from mioc_tpu_torch.ops.bellman_cuda import cluster_build_plan, dp_build_batched
+
+    adm = levels()
+    stage, btilde, jump, smax = _batched_tables(adm, S, nt, B, dtype, cuda_device)
+    U_p, phi_p = tb.build_tables_batched_plain(stage, btilde, jump, B, smax)
+    item = stage.element_size()
+    for C in range(1, min(16, B + 1) + 1):
+        plan = cluster_build_plan(S, nt, adm.L, B, item, smax, clusters=C)
+        assert plan.C == C
+        U_k, phi_k = dp_build_batched(stage, btilde, jump, B, smax, clusters=C)
+        assert torch.equal(U_k, U_p), C
+        assert torch.equal(phi_k, phi_p), C
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name,levels,nt,B", BUILD_EDGES)
+def test_cluster_build_edges_bit_equal_plain(cuda_device, name, levels, nt, B, dtype):
+    """The build edge shapes at C = 1 and at the largest C the plan takes
+    (16, or B+1 where smaller), bit-equal to the plain build."""
+    from mioc_tpu_torch.ops.bellman_cuda import dp_build_batched
+
+    adm = levels()
+    item = 8 if dtype == torch.float64 else 4
+    if B is None:
+        B = (232448 // item - adm.L ** 2) // (2 * adm.L) - 1
+    stage, btilde, jump, smax = _batched_tables(adm, 2, nt, B, dtype, cuda_device, seed=9)
+    U_p, phi_p = tb.build_tables_batched_plain(stage, btilde, jump, B, smax)
+    for C in sorted({1, min(16, B + 1)}):
+        U_k, phi_k = dp_build_batched(stage, btilde, jump, B, smax, clusters=C)
+        assert torch.equal(U_k, U_p) and torch.equal(phi_k, phi_p), C
+
+
+def test_new_kernels_raise_on_a_refused_launch(cuda_device, monkeypatch):
+    """A plan the C entry refuses raises RuntimeError from the wrapper, with
+    no plain version called: no fallback."""
+    from mioc_tpu_torch.ops import backtrack_cuda as kc
+    from mioc_tpu_torch.ops import bellman_cuda as bc
+
+    adm = product_levels([list(range(6))] * 2)
+    stage, btilde, jump, smax = _batched_tables(adm, 2, 60, 30, torch.float64, cuda_device)
+    U, phi0 = bc.dp_build_batched(stage, btilde, jump, 30, smax)
+    calls = (tb.build_tables_batched_plain.calls, tb.backtrack_trials_plain.calls)
+    good = bc.cluster_build_plan(2, 60, 36, 30, 8, smax, clusters=4)
+    monkeypatch.setattr(bc, "cluster_build_plan", lambda *a, **k: good._replace(tpl=1, K=1))
+    with pytest.raises(RuntimeError, match="dp_build_batched launch failed"):
+        bc.dp_build_batched(stage, btilde, jump, 30, smax)
+    plan = kc.chase_plan(60, 36, 30, 1, sets=2, rows=4)
+    monkeypatch.setattr(kc, "chase_plan", lambda *a, **k: plan._replace(C=1, T=1))
+    with pytest.raises(RuntimeError, match="chase_trials launch failed"):
+        kc.chase_trials(U, phi0, btilde, torch.zeros((2, 2), dtype=torch.int32,
+                                                     device=cuda_device))
+    assert (tb.build_tables_batched_plain.calls, tb.backtrack_trials_plain.calls) == calls

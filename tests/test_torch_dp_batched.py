@@ -9,6 +9,11 @@ batched ODE sweeps (plain PyTorch versions on the CPU).
   ``backtrack_pallas_trials`` (interpret); both equal the single chase.
 * ``stage_tables``, ``tv_rows``, ``iv_rows`` and the batched sweeps give
   every row the bits of the single call, whatever the batch size.
+* A numpy model of ``csrc/dp_build_batched.cu``'s cluster form (budget
+  slices per CTA, the halo pushed into the receiver's next Φ, one barrier
+  per step, each entry read written in that step or poisoned) for C ∈ {1,
+  2, 3, 16}, held bit for bit against the plain batched build and the JAX
+  package's scan and Pallas builds; and ``bellman_cuda.batched_build_plan``.
 
 The CUDA kernels are held against these plain versions on the card by
 ``chip_smoke.py`` and ``tests/test_torch_cuda.py``.
@@ -37,6 +42,7 @@ from mioc_tpu.utils.init import rand_func  # noqa: E402
 from mioc_tpu_torch import interop  # noqa: E402
 from mioc_tpu_torch.models import LVMObj  # noqa: E402
 from mioc_tpu_torch.ops import bellman as tb  # noqa: E402
+from mioc_tpu_torch.ops import bellman_cuda as bc  # noqa: E402
 from mioc_tpu_torch.ops.tv import fold_sum, iv_rows, tv_rows  # noqa: E402
 
 SETS = {
@@ -269,3 +275,189 @@ def test_batched_forward_matches_jax():
     assert ys_t.shape == np.asarray(ys_j).shape == (nt, 4, 2)
     np.testing.assert_allclose(f_t.numpy(), np.asarray(f_j), rtol=1e-12)
     np.testing.assert_allclose(ys_t.numpy(), np.asarray(ys_j), rtol=1e-12)
+
+
+# --------------------------------------- model of the budget-split cluster build
+
+
+def cluster_build_model(stage, btilde, jump, B, smax, plan):
+    """numpy model of one start of ``csrc/dp_build.cuh``'s cluster form under
+    ``plan`` (a ``BatchedBuildPlan``; C = 1 is one block per start).
+
+    CTA k owns budgets [lo_k, lo_{k+1}), lo_k = ⌊k(B+1)/C⌋, and keeps Φ in
+    two flat buffers of L rows of RW = H + ⌈(B+1)/C⌉ entries, budget b at
+    l·RW + b + H - lo_k (the H halo budgets below lo_k first).  Its threads
+    own (l, lo_k + b0 + k·tpl), k < K.  Each step every CTA reads only its
+    own current buffer, writes its slice into its next buffer and pushes each
+    value whose budget lies in a higher CTA's halo into that CTA's next
+    buffer; then (the barrier) the buffers swap.  Every next buffer is
+    poisoned with NaN before the step, so an entry that the step did not
+    write cannot pass for Φ_i."""
+    stage, btilde, jump = (np.asarray(a) for a in (stage, btilde, jump))
+    nt, L = stage.shape
+    B1 = B + 1
+    C, H, tpl, K = plan.C, plan.H, plan.tpl, plan.K
+    smax = min(smax, B)
+    RW = H + -(-B1 // C) if C > 1 else B1
+    lo = [k * B1 // C for k in range(C + 1)]
+    assert all(lo[k] < lo[k + 1] for k in range(C))  # no slice is empty
+    INF = stage.dtype.type(np.inf)
+    threads = [(t // tpl, t % tpl) for t in range(L * tpl)]
+
+    def outputs(k):
+        for l, b0 in threads:
+            for j in range(K):
+                b = lo[k] + b0 + j * tpl
+                if b >= lo[k + 1]:
+                    break
+                yield l, b
+
+    for k in range(C):  # every output of the slice, once
+        assert sorted(outputs(k)) == [(l, b) for l in range(L)
+                                      for b in range(lo[k], lo[k + 1])]
+    at = [lambda l, b, k=k: l * RW + b + H - lo[k] for k in range(C)]
+    bufs = [[np.full(L * RW, np.nan, stage.dtype) for _ in range(2)] for _ in range(C)]
+    for k in range(C):  # terminal layer: the slice and the halo
+        for l in range(L):
+            for b in range(max(0, lo[k] - H), lo[k + 1]):
+                bufs[k][0][at[k](l, b)] = stage[-1, l] if b == btilde[-1, l] else INF
+    U = np.zeros((max(nt - 1, 0), L, B1), np.int64)
+    cur = 0
+    for i in range(nt - 2, -1, -1):
+        for k in range(C):
+            bufs[k][1 - cur][:] = np.nan
+        for k in range(C):
+            src, dst = bufs[k][cur], bufs[k][1 - cur]
+            for l, b in outputs(k):
+                sh = btilde[i, l]
+                val, arg = INF, 0
+                if sh <= smax and b >= sh:
+                    col = at[k](0, b - sh)
+                    val = src[col] + jump[l, 0]
+                    for j in range(1, L):
+                        cand = src[col + j * RW] + jump[l, j]
+                        if cand < val:
+                            val, arg = cand, j
+                v = stage[i, l] + val
+                dst[at[k](l, b)] = v
+                U[i, l, b] = arg
+                k2 = k + 1  # the halo push
+                while k2 < C and b >= lo[k2] - H:
+                    bufs[k2][1 - cur][at[k2](l, b)] = v
+                    k2 += 1
+        cur = 1 - cur
+    phi0 = np.empty((L, B1), stage.dtype)
+    for k in range(C):
+        for l, b in outputs(k):
+            phi0[l, b] = bufs[k][cur][at[k](l, b)]
+    return U, phi0
+
+
+CLUSTER_BUILDS = [
+    # L, S, nt, B, C, outputs per thread: slices wider than the halo and
+    # narrower (heat: smax = 10 against width 1 at C = 16, so a value is
+    # pushed into ten CTAs' halos), uneven slices (C = 3), several outputs
+    # per thread (tpl 2), nt 1 and 2, L = 1, B = 0.
+    (3, 2, 30, 17, 2, None), (3, 2, 30, 17, 3, None), (3, 2, 30, 17, 16, None),
+    (5, 2, 20, 16, 3, 2), (5, 1, 20, 16, 16, None), (36, 2, 5, 15, 16, None),
+    (36, 1, 5, 15, 3, 2), (3, 2, 1, 17, 16, None), (5, 2, 2, 16, 16, None),
+    (1, 2, 20, 17, 16, None), (3, 2, 20, 0, 1, None), (36, 2, 6, 15, 1, None),
+]
+
+
+def _model_plan(S, nt, L, B, item, smax, C, tpl):
+    plan = bc.batched_build_plan(S, nt, L, B, item, smax, clusters=C)
+    if tpl is not None:
+        plan = plan._replace(tpl=tpl, K=-(-plan.width // tpl))
+    return plan
+
+
+@pytest.mark.parametrize("L,S,nt,B,C,tpl", CLUSTER_BUILDS)
+def test_cluster_build_model_bit_equal_plain_and_jax_scan(L, S, nt, B, C, tpl):
+    """float64: each start's U and phi0 from the cluster schedule equal the
+    plain batched build's and ``jax.vmap`` of the scan build's, bit for
+    bit."""
+    if L == 1:
+        s = product_levels([[0]])
+        rng = np.random.default_rng(nt)
+        st = rng.normal(size=(S, nt, 1))
+        bt = np.zeros((S, nt, 1), np.int32)
+        jump, smax = np.zeros((1, 1)), 0
+    else:
+        s, st, bt, jump, smax = _instance(L, S, nt, seed=L + nt + B, p=2)
+    U_p, phi_p = tb.build_tables_batched_plain(_t(st), _t(bt), _t(jump), B, smax)
+    U_j, phi_j = jax.vmap(lambda a, b: jb.build_tables(a, b, jnp.asarray(jump), B,
+                                                       smax))(st, bt)
+    plan = _model_plan(S, nt, L, B, 8, smax, C, tpl)
+    assert (plan.C, plan.H) == (C, min(smax, B) if C > 1 else 0)
+    for k in range(S):
+        U_m, phi_m = cluster_build_model(st[k], bt[k], jump, B, smax, plan)
+        np.testing.assert_array_equal(U_m, U_p[k].numpy())
+        np.testing.assert_array_equal(U_m, np.asarray(U_j[k]))
+        assert np.array_equal(phi_m.view(np.int64), phi_p[k].numpy().view(np.int64))
+        assert np.array_equal(phi_m.view(np.int64), np.asarray(phi_j[k]).view(np.int64))
+
+
+@pytest.mark.parametrize("L,S,nt,B,C", [(3, 2, 40, 17, 16), (3, 2, 40, 17, 3),
+                                        (36, 2, 6, 15, 16), (36, 2, 6, 15, 2)])
+def test_cluster_build_model_bit_equal_pallas_f32(L, S, nt, B, C):
+    """float32: the cluster schedule against the TPU kernel
+    ``_dp_kernel_batched`` in interpret mode and the plain build."""
+    s, st, bt, jump, smax = _instance(L, S, nt, seed=5 * L, p=2)
+    st32, jump32 = st.astype(np.float32), jump.astype(np.float32)
+    U_p, phi_p = build_tables_pallas_batched(jnp.asarray(st32), bt, jnp.asarray(jump32), B,
+                                             smax, interpret=True, raw_u=True)
+    U_c, phi_c = interop.tables_from_pallas(U_p, phi_p, nt=nt, L=L, B=B, device="cpu")
+    U_t, phi_t = tb.build_tables_batched_plain(_t(st32), _t(bt), _t(jump32), B, smax)
+    plan = bc.batched_build_plan(S, nt, L, B, 4, smax, clusters=C)
+    for k in range(S):
+        U_m, phi_m = cluster_build_model(st32[k], bt[k], jump32, B, smax, plan)
+        assert phi_m.dtype == np.float32
+        np.testing.assert_array_equal(U_m, U_c[k].numpy())
+        np.testing.assert_array_equal(U_m, U_t[k].numpy())
+        assert np.array_equal(phi_m.view(np.int32), phi_c[k].numpy().view(np.int32))
+        assert np.array_equal(phi_m.view(np.int32), phi_t[k].numpy().view(np.int32))
+
+
+@pytest.mark.parametrize("S,nt,L,B,C", [
+    (32, 1024, 3, 170, 1), (8, 2048, 5, 128, 1), (8, 1024, 36, 204, 16),
+    (1, 1024, 36, 204, 16), (32, 1024, 36, 204, 4), (16, 1024, 36, 204, 8),
+    (10, 1024, 36, 204, 13), (66, 1024, 36, 204, 2), (67, 1024, 36, 204, 1),
+    (8, 2, 36, 204, 16), (8, 20, 182, 0, 1), (4, 60, 36, 25, 16), (4, 60, 36, 24, 1)])
+def test_batched_build_plan_rule(S, nt, L, B, C):
+    """One block per start below CLUSTER_MIN_RELAX relaxations a step
+    (fishing, conv); above it the largest C ≤ min(16, B+1) with S·C ≤ 132
+    CTAs, or 1 where not even C = 2 fits (heat scale); C = 1 is build_plan's
+    plan as it is."""
+    smax = {3: 2, 5: 4, 36: 10, 182: 0}[L]
+    plan = bc.batched_build_plan(S, nt, L, B, 8, smax)
+    assert plan.C == C
+    if C == 1:
+        assert plan[3:] == tuple(bc.build_plan(nt, L, B, 8)) and plan.H == 0
+        assert plan.width == B + 1
+        return
+    width = -(-(B + 1) // C)
+    assert (plan.width, plan.H) == (width, min(smax, B))
+    assert plan.tpl * plan.K >= width and plan.threads <= bc.MAX_THREADS
+    assert plan.threads == -(-L * plan.tpl // 32) * 32 + 32
+    assert plan.smem == bc.smem_bytes(nt, L, B, 8, plan.R, plan.jsmem, plan.H + width)
+    assert plan.smem <= bc.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("nt,L,B,smax", [(1024, 3, 170, 2), (2048, 5, 128, 4),
+                                         (1024, 36, 204, 10), (1, 3, 9, 2), (2, 5, 4, 4),
+                                         (300, 1, 7, 0), (300, 3, 0, 2), (5, 2, 7262, 1)])
+@pytest.mark.parametrize("item", [4, 8])
+def test_batched_build_plan_takes_every_cluster_size(nt, L, B, smax, item):
+    """Every C from 1 to min(16, B+1) can be forced, each a plan that fits
+    one block; above that the plan refuses.  The edge shapes included: nt 1
+    and 2, L = 1, B = 0 (C = 1 only), the largest B one float64 block took
+    for L = 2 (rows in place at C = 1, staged rows in a cluster)."""
+    for C in range(1, min(bc.MAX_CLUSTER, B + 1) + 1):
+        plan = bc.batched_build_plan(3, nt, L, B, item, smax, clusters=C)
+        assert plan.C == C and plan.smem <= bc.MAX_SMEM_BYTES
+        assert plan.tpl * plan.K >= plan.width and plan.threads <= bc.MAX_THREADS
+        if C > 1 and nt > 1:
+            assert plan.R > 0
+    with pytest.raises(ValueError, match="CTAs per start"):
+        bc.batched_build_plan(3, nt, L, B, item, smax, clusters=min(16, B + 1) + 1)

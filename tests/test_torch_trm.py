@@ -93,6 +93,44 @@ def test_default_device_without_cuda_raises(monkeypatch):
         LVMObj(nt=10, device="cuda")
 
 
+@pytest.mark.parametrize("par", [dict(dp_backend="scan"), dict(dp_backend="pallas"),
+                                 dict(use_pallas=False), dict(use_pallas=True),
+                                 dict(use_pallas=False, dp_backend="pallas")],
+                         ids=["scan", "pallas", "use_pallas-False", "use_pallas-True",
+                              "backend-first"])
+def test_jax_dp_spellings_are_taken(par):
+    """The JAX package's DP spellings (``dp_backend="scan"|"pallas"``,
+    ``use_pallas``) solve on the CPU, every one to the default route's
+    result: the plain versions there either way."""
+    kw = dict(beta=1e-4, delta0=2.0, p=np.inf)
+    ref = trm_solve(LVMObj(nt=48, device="cpu"), TRMParameters(**kw), seed=0)
+    got = trm_solve(LVMObj(nt=48, device="cpu"), TRMParameters(**kw, **par), seed=0)
+    assert (got.iterations, got.inner_steps, got.J) == (ref.iterations, ref.inner_steps,
+                                                        ref.J)
+    np.testing.assert_array_equal(got.u, ref.u)
+    assert list(TRMParameters.__dataclass_fields__).index("use_pallas") == list(
+        jtrm.TRMParameters.__dataclass_fields__).index("use_pallas")
+
+
+def test_dp_route_rule():
+    """``pallas``, True or neither: the device's route; ``scan`` or False:
+    the plain versions, refused for the card; ``dp_backend`` first."""
+    from mioc_tpu_torch.solvers.trm import dp_route
+
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    for backend, use, want in ((None, None, "pallas"), (None, True, "pallas"),
+                               ("pallas", None, "pallas"), ("pallas", False, "pallas"),
+                               (None, False, "scan"), ("scan", True, "scan")):
+        assert dp_route(backend, use, cpu) == want
+        if want == "pallas":
+            assert dp_route(backend, use, cuda) == want
+        else:
+            with pytest.raises(ValueError, match="plain versions"):
+                dp_route(backend, use, cuda)
+    with pytest.raises(ValueError, match="Unknown dp_backend"):
+        dp_route("nope", None, cpu)
+
+
 @pytest.mark.parametrize("backend", ["temporal", "sharded"])
 def test_unported_backends_raise(backend):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

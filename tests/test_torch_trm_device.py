@@ -247,11 +247,38 @@ def test_multistart_unroll_is_exact(port_multi, multi_x0s, ou, iu):
 
 
 def test_multistart_vmap_wave_equals_trials(port_multi, multi_x0s):
+    """The S > 1 wave chases S table sets of K caps each under either
+    name, one trial-wave chase per outer iteration and no copy."""
+    counters = (tb.backtrack_batched_plain, tb.backtrack_trials_plain)
+    before = [f.calls for f in counters]
     run = make_device_trm(_obj(160), TRMParameters(**PINF), speculative=True,
                           wave_chase="vmap")
     res = run.finalize(run(torch.as_tensor(multi_x0s), True))
+    calls = [f.calls - b for f, b in zip(counters, before)]
+    assert calls == [0, int(res.iterations.max())]
     np.testing.assert_array_equal(res.u.numpy(), port_multi[True].u)
     np.testing.assert_array_equal(res.inner_steps.numpy(), port_multi[True].inner_steps)
+
+
+def test_wave_of_sets_equals_the_copied_tables():
+    """The S > 1 wave's chase of S table sets with K caps each equals the
+    batched chase of the S·K materialised copies that the wave used to
+    build, row for row."""
+    rng = np.random.default_rng(4)
+    S, K, nt, B = 3, 5, 60, 12
+    levels = np.eye(3)
+    grad = torch.as_tensor(rng.normal(size=(S, nt, 3)))
+    u_old = torch.as_tensor(levels[rng.integers(0, 3, size=(S, nt))])
+    jump = torch.as_tensor(np.where(np.eye(3) > 0, 0.0, 1e-2))
+    stage, bt = tb.stage_tables(grad, u_old, levels, 0.05)
+    U, phi0 = tb.build_tables_batched(stage, bt, jump, B, 2)
+    caps = torch.tensor([B, B // 2, 3, 0, -1], dtype=torch.int32)
+    u_sets, idx_sets = tb.backtrack_trials(U, phi0, bt, levels, caps.expand(S, K))
+    copies = [t[:, None].expand(S, K, *t.shape[1:]).reshape(S * K, *t.shape[1:])
+              for t in (U, phi0, bt)]
+    u_copy, idx_copy = tb.backtrack_batched(*copies, levels, caps.repeat(S))
+    assert torch.equal(idx_sets.reshape(S * K, nt), idx_copy)
+    assert torch.equal(u_sets.reshape(S * K, nt, 3), u_copy)
 
 
 def test_ode_trm_step_matches_jax():
@@ -275,6 +302,31 @@ def test_multistart_solve_matches_jax():
         assert (a.iterations, a.inner_steps) == (b.iterations, b.inner_steps)
         np.testing.assert_allclose(a.J, b.J, rtol=1e-12)
     np.testing.assert_allclose(bt.J, bj.J, rtol=1e-12)
+
+
+def test_entry_points_take_the_jax_argument_order(single_x0, port_single, port_multi,
+                                                  multi_x0s):
+    """``use_pallas`` sits where the JAX package has it: third in
+    ``make_device_trm``, after ``seed`` in ``trm_solve_device``, after
+    ``mesh`` in ``multistart_solve_device``.  Each entry point called with
+    the JAX package's positional order gives the keyword call's result."""
+    par = TRMParameters(**PINF)
+    run = make_device_trm(_obj(240), par, True, 3, True)
+    pos = run.finalize(run(torch.as_tensor(single_x0[None]), False))
+    run = make_device_trm(_obj(240), par, use_pallas=True, outer_chunk=3, speculative=True)
+    kw = run.finalize(run(torch.as_tensor(single_x0[None]), False))
+    for field in kw._fields:
+        assert torch.equal(getattr(pos, field), getattr(kw, field)), field
+    fronts = []
+    one = trm_solve_device(_obj(240), par, single_x0, None, True, 3,
+                           lambda it, s: fronts.append(it), True)
+    assert fronts and fronts[-1] == int(one.iterations)
+    assert_same(one, port_single[("pinf", True)], rtol=0)
+    fronts = []
+    many = multistart_solve_device(_obj(160), par, multi_x0s, None, False, 5,
+                                   lambda it, s: fronts.append(it))
+    assert fronts and fronts[-1] == int(np.max(many.iterations))
+    assert_same(many, port_multi[False], rtol=0)
 
 
 def test_unported_backends_raise():
