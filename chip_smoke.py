@@ -78,7 +78,35 @@ Run from the root of a checkout.  It builds the CUDA kernels from
    d. ``doubletank``, ``vanderpol`` and ``fuller`` at ``--n 1024 --seed
       0``: the JAX package's constants;
    and prints where the time of (a) and (b) goes, the chases against the
-   rest, with the A/B of the two chases at every shape.
+   rest, with the A/B of the two chases at every shape;
+7. drives the heat problem, ``HeatObj(nt=500)`` (N = 545 P2 dofs from the
+   native triangulator, which must build; L = 36, B = 100) under its preset
+   ``TRMParameters(beta=1e-3, delta0=2.0, p=2)`` at float64, each path with
+   the launch counts set to 0 just before it and read just after:
+   e. the host loop through the CLI, ``heat --n 500 --seed 0 --no-plot
+      --no-log --checkpoint …`` (the JAX CLI's own example): the JAX
+      package's iterations, f and ∇f evaluations and J (``CLI_REFS``),
+      through one ``dp_build`` per iteration and one ``chase`` per inner
+      step and no other kernel;
+   f. the device loop ``trm_solve_device(HeatObj(nt=500), preset, seed=0)``
+      (speculative, the ``"trials"`` wave chase): the iterations, inner
+      steps, J and accepted u of (e), one ∇f fewer, through one ``dp_build``
+      and one ``chase_trials`` per outer iteration and no other kernel;
+   g. ``multistart_solve_device`` over the 8 starts ``rand_func(obj,
+      seed=s)``, sequential and speculative: every start equal to the JAX
+      package's result (iterations and inner steps equal, J to rtol 1e-12;
+      constants ``REF8_HEAT_*``), start 0 equal to (f), the speculative run
+      equal to the sequential one field for field; through
+      ``dp_build_batched`` in a cluster form (C > 1, printed with the plan)
+      and ``chase_batched`` (sequential) or ``chase_trials`` (speculative);
+   then ``heat_rows``: a heat forward and adjoint evaluated as 1, 2, 8, 9,
+   16, 17, 64 and 72 rows, every row bit-equal to the single evaluation of
+   that row, with the ms per batched f and ∇f at each row count; the
+   kernels at the heat solve's shape (``dp_build``, ``chase``, ``chase_vec``;
+   the S=8 batched kernels with the preset's 8 halving caps; ``chase_trials``
+   on one table set with those caps), each held against its plain version;
+   and where each heat path's time goes: the sweeps (evaluations × ms per
+   batch), the kernels (launches × ms per call at that shape), the rest.
 
 Each finding is printed as one JSON object per line; the ``kernels`` line
 comes next to last and the last line is
@@ -155,6 +183,7 @@ CLI_REFS = {
     "doubletank --n 1024": (4.739496951260922, 11, 42, 12),
     "vanderpol --n 1024": (2.41124024148147, 31, 57, 32),
     "fuller --n 1024": (0.000777635513012828, 32, 183, 33),
+    "heat --n 500": (780.5854728417821, 223, 1414, 224),
 }
 
 SHAPES = (
@@ -969,6 +998,255 @@ def check_multistarts(seq, spec, single):
                 f"speculative multistart == sequential: {field}")
 
 
+# The heat problem's paths: HeatObj(nt=500) (N = 545 P2 dofs from the native
+# triangulator, L = 36; B = 100 and smax = 10 at the preset's δ₀ = 2, τ =
+# 0.02), the JAX CLI's own example.
+HEAT_NT = 500
+HEAT_N = 545
+HEAT_PRESET = dict(beta=1e-3, delta0=2.0, p=2)
+HEAT_SHAPE = ("heat500", HEAT_NT, 100, ("product", [list(range(6))] * 2),
+              (2, 1e-3, 10.0 / HEAT_NT))
+HEAT_STARTS = 8
+# The JAX package's batched multistart of the heat preset at nt=500 from the
+# 8 starts rand_func(obj, seed=s), s = 0 … 7, on the CPU at float64:
+#   JAX_PLATFORMS=cpu python -c "import jax, numpy as np
+#   jax.config.update('jax_enable_x64', True)
+#   from mioc_tpu.models.heat import HeatObj; from mioc_tpu.solvers.trm import TRMParameters
+#   from mioc_tpu.solvers.trm_device import multistart_solve_device
+#   from mioc_tpu.utils.init import rand_func
+#   obj = HeatObj(nt=500); x0s = np.stack([rand_func(obj, seed=s) for s in range(8)])
+#   r = multistart_solve_device(obj, TRMParameters(beta=1e-3, delta0=2.0, p=2), x0s)
+#   print(r.iterations.tolist(), r.inner_steps.tolist(), [float(j) for j in r.J])"
+REF8_HEAT_ITERATIONS = (223, 322, 254, 282, 252, 217, 233, 250)
+REF8_HEAT_INNER = (1413, 1991, 1614, 1801, 1536, 1302, 1408, 1569)
+REF8_HEAT_J = (780.5854728417946, 780.6982227170389, 780.7230210272979, 780.6790733967259,
+               780.7426547978052, 780.6725156628451, 780.6296444114937, 780.6874820453411)
+# Row counts of the heat_rows phase: those the paths evaluate (1, 8 and 64)
+# and chunk edges around ROWS = 16.
+HEAT_ROWS = (1, 2, 8, 9, 16, 17, 64, 72)
+
+
+def heat_wave_phase(torch, caps, seed) -> dict:
+    """``chase_trials`` on ONE table set with the preset's K halving caps (the
+    single device solve's wave, ``wave_chase="trials"``) at the heat solve's
+    shape, float64: equal to the plain walk of each cap, timed in turns with
+    the plain trial chase."""
+    from mioc_tpu_torch.ops import bellman as tb
+    from mioc_tpu_torch.ops import levels as lv
+    from mioc_tpu_torch.ops.backtrack_cuda import chase_plan, chase_trials
+    from mioc_tpu_torch.ops.bellman_cuda import dp_build
+
+    _, nt, B, (_, V), (p, beta, tau) = HEAT_SHAPE
+    adm = lv.product_levels(V)
+    L = adm.L
+    rng = np.random.default_rng(seed)
+    dtype = torch.float64
+    grad = torch.as_tensor(rng.normal(size=(nt, adm.M)), dtype=dtype, device=DEVICE)
+    u_old = torch.as_tensor(adm.levels[rng.integers(0, L, size=nt)], dtype=dtype,
+                            device=DEVICE)
+    jump = torch.as_tensor(lv.jump_cost_table(adm.levels, p, beta=beta), dtype=dtype,
+                           device=DEVICE)
+    smax = tb.max_budget_use(adm.levels)
+    stage, btilde = tb.stage_tables(grad, u_old, adm.levels, tau)
+    U, phi0 = dp_build(stage, btilde, jump, B, smax)
+    one = (U[None], phi0[None], btilde[None])
+    K = len(caps)
+    caps_t = torch.tensor([caps], dtype=torch.int32, device=DEVICE)
+    got = chase_trials(*one, caps_t)[0]
+    want = torch.stack([tb.backtrack_plain(U, phi0, btilde, c) for c in caps])
+    err = int((got.long() - want.long()).abs().max())
+    require(err == 0, f"heat single wave: chase_trials equal at caps {caps}")
+    ms, plain = in_turns(torch, lambda: tb.backtrack_trials_plain(*one, caps_t.cpu()),
+                         lambda: chase_trials(*one, caps_t), 3, 10)
+    ds, us = phi0.element_size(), U.element_size()
+    nbytes = L * (B + 1) * ds + K * ((nt - 1) * (us + 4) + nt * 4 + 4)
+    ops = K * (L * (B + 1) + (nt - 1))
+    bd_ms, bd_by = bound(nbytes, ops, "float64")
+    out = {"phase": "wave_kernels", "shape": "heat500", "dtype": "float64", "S": 1,
+           "K": K, "nt": nt, "L": L, "B": B, "caps": caps,
+           "chase_trials": {"max_abs_err": err, "kernel_ms": ms, "plain_ms": plain,
+                            "ns_per_step": ms * 1e6 / (nt - 1), "bound_ms": bd_ms,
+                            "bound_by": bd_by, "ops": ops, "bytes": nbytes,
+                            "plan": chase_plan(nt, L, B, us, 1, K)._asdict()}}
+    emit(out)
+    return out
+
+
+def heat_rows(torch) -> dict:
+    """HeatObj(nt=500) on the card: every row of a batched forward and
+    adjoint at :data:`HEAT_ROWS` rows is bit-equal to the single evaluation
+    of that row (f, the states, ∇f and the adjoint states), whether one raw
+    ``torch.matmul`` of the state step would have given each row the same
+    bits, the ms per batched f and ∇f (CUDA-event medians, the row counts in
+    turns, ascending then descending), and the ms of one state-step product
+    at chunk widths 16 … 128."""
+    from mioc_tpu_torch.models import HeatObj
+    from mioc_tpu_torch.ops.rows import ROWS
+    from mioc_tpu_torch.utils.init import rand_func
+
+    obj = HeatObj(nt=HEAT_NT)
+    n = max(HEAT_ROWS)
+    X = torch.as_tensor(np.stack([rand_func(obj, seed=s) for s in range(n)]),
+                        dtype=obj.dtype, device=obj.device)
+    singles = []
+    for s in range(n):
+        f1, y1 = obj._forward(X[s])
+        d1, l1 = obj._adjoint(X[s], y1)
+        singles.append((f1, y1, d1, l1))
+    v = obj.state0 + obj._drive(X[:, :1].transpose(0, 1))[0]   # (n, N): step 1's input
+    raw1 = torch.stack([(v[s:s + 1] @ obj._SinvT)[0] for s in range(n)])
+    out = {"phase": "heat_rows", "nt": HEAT_NT, "N": obj.Nglobal_dofs, "dtype": "float64",
+           "chunk_rows": ROWS, "rows_bit_equal": {}, "raw_matmul_rows_bit_equal": {},
+           "f_ms": {}, "df_ms": {}}
+    for R in HEAT_ROWS:
+        f, ys = obj._forward_batch(X[:R])
+        df, lam = obj._adjoint_batch(X[:R], ys)
+        ok = all(torch.equal(bits(f[s], torch), bits(singles[s][0], torch))
+                 and torch.equal(bits(ys[:, s], torch), bits(singles[s][1], torch))
+                 and torch.equal(bits(df[s], torch), bits(singles[s][2], torch))
+                 and torch.equal(bits(lam[s], torch), bits(singles[s][3], torch))
+                 for s in range(R))
+        out["rows_bit_equal"][R] = ok
+        out["raw_matmul_rows_bit_equal"][R] = torch.equal(
+            bits(v[:R] @ obj._SinvT, torch), bits(raw1[:R], torch))
+    times = {"f": {}, "df": {}}
+    for R in HEAT_ROWS + HEAT_ROWS[::-1]:
+        _, ys = obj._forward_batch(X[:R])
+        times["f"].setdefault(R, []).extend(
+            median_ms(torch, lambda: obj._forward_batch(X[:R]), 3))
+        times["df"].setdefault(R, []).extend(
+            median_ms(torch, lambda: obj._adjoint_batch(X[:R], ys), 3))
+    for kind in ("f", "df"):
+        out[f"{kind}_ms"] = {R: statistics.median(t) for R, t in times[kind].items()}
+    # What one state-step product costs at other chunk widths (the sweep
+    # launches nt of them per chunk): ms per (rows, N)·(N, N) product.
+    prod = {}
+    for rows in (16, 32, 64, 128, 16):
+        a = torch.randn(rows, obj.Nglobal_dofs, dtype=obj.dtype, device=obj.device)
+        prod.setdefault(rows, []).extend(
+            median_ms(torch, lambda: torch.matmul(a, obj._SinvT), 20))
+    out["state_product_ms_by_rows"] = {r: statistics.median(t) for r, t in prod.items()}
+    emit(out)
+    for R in HEAT_ROWS:
+        require(out["rows_bit_equal"][R], f"heat rows of a {R}-row batch bit-equal")
+    return out
+
+
+def heat_host_path(torch, tmp) -> dict:
+    """(e): the JAX CLI's heat example through the port's CLI, host loop."""
+    ck = os.path.join(tmp, "heat.npz")
+    r = run_cli(torch, "heat_host", ["heat", "--n", str(HEAT_NT), "--seed", "0",
+                                     "--no-plot", "--no-log", "--checkpoint", ck])
+    check_cli(r, f"heat --n {HEAT_NT}")
+    n = r["launches"]
+    require(n["dp_build"] == r["iterations"] and n["chase"] == r["f_evals"] - 1
+            and not any(v for k, v in n.items() if k not in ("dp_build", "chase")),
+            f"heat_host: {r['iterations']} dp_build and {r['f_evals'] - 1} chase "
+            f"launches, no other kernel: {n}")
+    with np.load(ck) as z:
+        r["u"] = z["u"]
+    return r
+
+
+def heat_device_path(torch, host) -> tuple:
+    """(f): the device loop from the same start as (e)."""
+    from mioc_tpu_torch.models import HeatObj
+    from mioc_tpu_torch.solvers.trm import TRMParameters
+    from mioc_tpu_torch.solvers.trm_device import trm_solve_device
+
+    obj = HeatObj(nt=HEAT_NT)
+    require(obj.Nglobal_dofs == HEAT_N and obj.admissible.L == 36, "heat: N = 545, L = 36")
+    sweeps = count_sweeps(obj)
+    read = zero_counts(torch)
+    t0 = time.perf_counter()
+    res = trm_solve_device(obj, TRMParameters(**HEAT_PRESET), seed=0)
+    wall = time.perf_counter() - t0
+    launches, plain_calls = read()
+    emit({"phase": "heat_device", "problem": "heat", "nt": HEAT_NT, "N": HEAT_N,
+          "dtype": "float64", "speculative": True, "wave_chase": obj._wave_chase_default,
+          "J": float(res.J), "converged": bool(res.converged),
+          "iterations": int(res.iterations), "inner_steps": int(res.inner_steps),
+          "f_evals": int(res.f_evals), "df_evals": int(res.df_evals),
+          "dp_builds": int(res.dp_builds), "launches": launches,
+          "plain_calls_on_card": plain_calls, "sweeps": sweeps, "wall_s": wall})
+    its = int(res.iterations)
+    require(bool(res.converged), "heat device solve converged")
+    require(its == host["iterations"] and int(res.inner_steps) == host["f_evals"] - 1,
+            f"heat device solve: iterations/inner steps {its}/{int(res.inner_steps)} == "
+            f"host's {host['iterations']}/{host['f_evals'] - 1}")
+    require(abs(float(res.J) - host["J"]) <= 1e-12 * abs(host["J"]),
+            f"heat device J {float(res.J)!r} == host's {host['J']!r}")
+    require(int(res.df_evals) == host["df_evals"] - 1, "heat device df_evals == host's − 1")
+    require(np.array_equal(res.u, host["u"]), "heat device solve == host: accepted u")
+    require(launches["dp_build"] == launches["chase_trials"] == its
+            and not any(v for k, v in launches.items()
+                        if k not in ("dp_build", "chase_trials")),
+            f"heat device solve: {its} dp_build and {its} chase_trials launches: {launches}")
+    require(not any(plain_calls.values()), "heat device: no plain DP on the card")
+    return res, launches, wall, sweeps
+
+
+def heat_multistart_path(torch, x0s, speculative: bool) -> tuple:
+    """(g): the batched multistart over the 8 starts, sequential or
+    speculative."""
+    from mioc_tpu_torch.models import HeatObj
+    from mioc_tpu_torch.ops.bellman import max_budget_use
+    from mioc_tpu_torch.ops.bellman_cuda import cluster_build_plan
+    from mioc_tpu_torch.solvers.trm import TRMParameters
+    from mioc_tpu_torch.solvers.trm_device import multistart_solve_device
+
+    obj = HeatObj(nt=HEAT_NT)
+    S, B = len(x0s), int(np.floor(HEAT_PRESET["delta0"] / obj.tau))
+    plan = cluster_build_plan(S, HEAT_NT, obj.admissible.L, B, 8,
+                              max_budget_use(obj.admissible.levels))
+    sweeps = count_sweeps(obj)
+    read = zero_counts(torch)
+    t0 = time.perf_counter()
+    res = multistart_solve_device(obj, TRMParameters(**HEAT_PRESET), x0s,
+                                  speculative=speculative)
+    wall = time.perf_counter() - t0
+    launches, plain_calls = read()
+    name = "heat_multistart_" + ("speculative" if speculative else "sequential")
+    emit({"phase": name, "problem": "heat", "nt": HEAT_NT, "N": HEAT_N,
+          "dtype": "float64", "S": S, "B": B, "build_plan": plan._asdict(),
+          "J": res.J.tolist(), "converged": res.converged.tolist(),
+          "iterations": res.iterations.tolist(), "inner_steps": res.inner_steps.tolist(),
+          "max_iterations": int(res.iterations.max()), "launches": launches,
+          "plain_calls_on_card": plain_calls, "sweeps": sweeps, "wall_s": wall,
+          "ms_per_start": 1e3 * wall / S})
+    require(plan.C > 1, f"{name}: dp_build_batched takes a cluster (C = {plan.C})")
+    require(bool(res.converged.all()), f"{name}: every start converged")
+    require(not any(plain_calls.values()), f"{name}: no plain DP on the card")
+    its = int(res.iterations.max())
+    wave = "chase_trials" if speculative else "chase_batched"
+    require(launches["dp_build_batched"] == its and launches[wave] >= its
+            and not any(v for k, v in launches.items()
+                        if k not in ("dp_build_batched", wave)),
+            f"{name}: {its} dp_build_batched and the {wave} chases only: {launches}")
+    for s in range(S):
+        require(int(res.iterations[s]) == REF8_HEAT_ITERATIONS[s]
+                and int(res.inner_steps[s]) == REF8_HEAT_INNER[s],
+                f"{name} start {s}: iterations/inner steps == JAX "
+                f"({int(res.iterations[s])}/{int(res.inner_steps[s])})")
+        require(abs(float(res.J[s]) - REF8_HEAT_J[s]) <= 1e-12 * abs(REF8_HEAT_J[s]),
+                f"{name} start {s}: J {float(res.J[s])!r} == {REF8_HEAT_J[s]!r}")
+    return res, launches, wall, sweeps, plan
+
+
+def check_heat_multistarts(seq, spec, single) -> None:
+    """Start 0 equals the single device solve (f); the speculative
+    multistart equals the sequential one field for field, bit for bit."""
+    from mioc_tpu_torch.solvers.trm_device import DeviceTRMResult
+
+    require(np.array_equal(seq.u[0], single.u) and int(seq.iterations[0]) == int(
+        single.iterations) and int(seq.inner_steps[0]) == int(single.inner_steps)
+            and float(seq.J[0]) == float(single.J),
+            "heat multistart start 0 == heat device solve")
+    for field in DeviceTRMResult._fields:
+        require(np.array_equal(getattr(spec, field), getattr(seq, field)),
+                f"heat speculative multistart == sequential: {field}")
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(ROOT, "mioc_tpu_torch")):
@@ -1027,6 +1305,25 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as tmp:
         cli = cli_paths(torch, tmp)
+        from mioc_tpu_torch.fem import _native_triangle
+
+        require(_native_triangle.available(), "the native triangulator builds")
+        heat_host = heat_host_path(torch, tmp)
+    heat_single, heat_single_launches, heat_single_wall, heat_single_sweeps = (
+        heat_device_path(torch, heat_host))
+    from mioc_tpu_torch.models import HeatObj
+
+    heat_x0s = np.stack([rand_func(HeatObj(nt=HEAT_NT), seed=s) for s in range(HEAT_STARTS)])
+    heat_seq = heat_multistart_path(torch, heat_x0s, False)
+    heat_spec = heat_multistart_path(torch, heat_x0s, True)
+    check_heat_multistarts(heat_seq[0], heat_spec[0], heat_single)
+    hrows = heat_rows(torch)
+    _, hnt, hB, hspec, hpreset = HEAT_SHAPE
+    heat64 = kernel_phase(torch, "heat500", hnt, hB, hspec, hpreset, torch.float64, 30)
+    heat_batched = batched_phase(torch, "heat500", HEAT_STARTS, HEAT_SHAPE,
+                                 schedule(HEAT_PRESET["delta0"], 10.0 / HEAT_NT),
+                                 torch.float64, 31)
+    heat_wave = heat_wave_phase(torch, schedule(HEAT_PRESET["delta0"], 10.0 / HEAT_NT), 32)
 
     # Where the time of each path goes: the sweeps (batches × measured ms per
     # batch), the kernels (launches × measured kernel ms), and the rest
@@ -1075,6 +1372,34 @@ def main() -> int:
                   phases[(shape, dtype)]["chase_vec"]["in_turns_with_chase"]
               for shape, *_ in SHAPES for dtype in (torch.float32, torch.float64)}})
 
+    # Where the time of each heat path goes: the sweeps (evaluations × the
+    # heat_rows ms per batch of their row count), the kernels (launches × the
+    # ms per call at the heat solve's shape) and the rest.
+    heat_kernel_ms = {"dp_build": heat64["dp_build"]["kernel_ms"],
+                      "chase": heat64["chase"]["kernel_ms"],
+                      "chase_vec": heat64["chase_vec"]["kernel_ms"],
+                      **{k: heat_batched[k]["kernel_ms"] for k in (
+                          "dp_build_batched", "chase_batched", "chase_trials")}}
+    heat_host_sweeps = {"f": {1: heat_host["f_evals"]}, "df": {1: heat_host["df_evals"]}}
+    heat_paths = {
+        "heat_host": (heat_host["wall_s_measured"], heat_host["launches"], heat_host_sweeps),
+        "heat_device": (heat_single_wall, heat_single_launches, heat_single_sweeps),
+        "heat_multistart_sequential": (heat_seq[2], heat_seq[1], heat_seq[3]),
+        "heat_multistart_speculative": (heat_spec[2], heat_spec[1], heat_spec[3])}
+    for name, (wall, launches, counts) in heat_paths.items():
+        per_call = dict(heat_kernel_ms)
+        if name == "heat_device":  # one table set of K caps, not S = 8 sets
+            per_call["chase_trials"] = heat_wave["chase_trials"]["kernel_ms"]
+        kernels_s = {k: n * per_call[k] / 1e3 for k, n in launches.items() if n}
+        sweep_s = {kind: sum(n * hrows[f"{kind}_ms"][R] for R, n in counts[kind].items()) / 1e3
+                   for kind in ("f", "df")}
+        emit({"phase": "where_the_time_goes", "path": name, "wall_s": wall,
+              "sweeps_s_estimate": sweep_s, "kernels_s_estimate": kernels_s,
+              "rest_s": wall - sum(sweep_s.values()) - sum(kernels_s.values()),
+              "sweep_counts": counts, "kernel_ms_per_call": per_call,
+              **({"timings_s": heat_host["timings"]} if name == "heat_host" else {})})
+    heat_launches = {name: launches for name, (_, launches, _) in heat_paths.items()}
+
     rows = []
     for key, src, tpu, launches, path, m in (
             ("dp_build", "dp_build.cu", "mioc_tpu/ops/bellman_pallas.py:123",
@@ -1097,7 +1422,9 @@ def main() -> int:
                      "max_abs_err": m["max_abs_err"], "ms": m["kernel_ms"],
                      "ns_per_step": m["ns_per_step"],
                      "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
-                     "bound_by": m["bound_by"], "library_ms": None})
+                     "bound_by": m["bound_by"], "library_ms": None,
+                     "heat_launches": {p: n[key] for p, n in heat_launches.items()},
+                     "heat_shape_ms": heat_kernel_ms[key]})
     emit({"phase": "run", "seconds": time.perf_counter() - t_start})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

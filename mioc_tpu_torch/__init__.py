@@ -6,9 +6,13 @@ mirrors the JAX package so that each module has an obvious counterpart:
 
 * :mod:`mioc_tpu_torch.ops`        — admissible sets, TV, the DP (plain
   PyTorch version plus hand-written CUDA kernels for Hopper in ``csrc/``).
-* :mod:`mioc_tpu_torch.objectives` — objective protocol, ODE sweeps.
-* :mod:`mioc_tpu_torch.models`     — Lotka–Volterra fishing.
-* :mod:`mioc_tpu_torch.solvers`    — the host-driven TRM.
+* :mod:`mioc_tpu_torch.objectives` — objective protocol, ODE sweeps, the
+  dense parabolic PDE objective.
+* :mod:`mioc_tpu_torch.models`     — fishing, double tank, Van der Pol,
+  Fuller, convolution and heat, and the problem registry.
+* :mod:`mioc_tpu_torch.fem`        — meshes, elements, quadrature and
+  assembly (numpy, at model construction) and the native triangulator.
+* :mod:`mioc_tpu_torch.solvers`    — the host-driven and the device TRM.
 * :mod:`mioc_tpu_torch.utils`      — starts, Julia RNG, logging, checks, IO.
 * :mod:`mioc_tpu_torch.interop`    — builds the port's objects from the JAX
   package's data (numpy arrays), for tests that hold the two together.

@@ -7,6 +7,7 @@ without CUDA the run raises, pass ``--device cpu``).  Usage::
 
     python -m mioc_tpu_torch.cli fishing --n 1024 --no-plot
     python -m mioc_tpu_torch.cli convolution --n 2048 --seed 0 --no-plot --device-loop
+    python -m mioc_tpu_torch.cli heat --n 500 --no-plot
 
 Differences from the JAX CLI:
 
@@ -16,15 +17,16 @@ Differences from the JAX CLI:
   and is refused on the card, where no solve runs them; ``temporal`` and
   ``sharded`` are not ported and raise ``NotImplementedError``
   (``solvers.trm.dp_route``, the rule the solvers apply too);
-* plotting is not ported (ROADMAP.md queue A item 7): a run that the JAX
-  CLI would plot — a single host-loop solve, or any ``--device-loop`` run,
+* plotting is not ported (ROADMAP.md queue A item 7), nor the animation of
+  a PDE state that the JAX CLI adds for ``heat``: a run that the JAX CLI
+  would plot — a single host-loop solve, or any ``--device-loop`` run,
   without ``--no-plot`` — raises ``NotImplementedError`` before it solves;
   the host-loop ``--multistart N`` (N > 1), which the JAX CLI does not plot,
   runs;
 * ``--multistart`` with ``--device-loop`` runs the batched multistart on one
   device (no mesh);
-* ``mixed`` and ``heat`` are listed but not ported: they raise
-  ``NotImplementedError`` naming their ROADMAP.md items.
+* ``mixed`` is listed but not ported: it raises ``NotImplementedError``
+  naming its ROADMAP.md item.
 """
 
 from __future__ import annotations

@@ -14,10 +14,11 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
-from .models import ConvObj, DTMObj, FullerObj, LVMObj, VPOObj
+from .models import ConvObj, DTMObj, FullerObj, HeatObj, LVMObj, VPOObj
 from .ops.levels import AdmissibleSet
 
-__all__ = ["LVM_PARAMS", "PROBLEM_PARAMS", "CONV_OPERATORS", "admissible_from_arrays",
+__all__ = ["LVM_PARAMS", "PROBLEM_PARAMS", "CONV_OPERATORS", "HEAT_OPERATORS",
+           "admissible_from_arrays",
            "lvm_from_params", "objective_from_params", "tables_from_pallas"]
 
 # The numeric parameters that define a fishing problem (attributes of
@@ -33,12 +34,19 @@ PROBLEM_PARAMS = {
     "vanderpol": ("nt", "c", "state0"),
     "fuller": ("nt", "state0", "terminal_weight", "terminal_frac"),
     "convolution": ("nt", "omega0"),
+    "heat": ("nt", "gamma", "kappa", "Tout", "temp0", "tempT"),
 }
 
 # The operators of a convolution problem (attributes of
 # ``mioc_tpu.models.ConvObj``); :func:`objective_from_params` installs them
 # when given, in place of the port's own build.
 CONV_OPERATORS = ("K", "fvec", "_Mdiag", "_Moff")
+
+# The operators of a heat problem (attributes of ``mioc_tpu.models.HeatObj``:
+# the dense inverse S⁻¹, M⁻¹F, the dense mass matrix, the target, the initial
+# state and the step); :func:`objective_from_params` builds the objective on
+# them, with no assembly of its own, when given.
+HEAT_OPERATORS = ("Sinv", "M_invF", "_Mj", "yd", "state0", "tau")
 
 
 def admissible_from_arrays(V, indices, levels) -> AdmissibleSet:
@@ -96,7 +104,9 @@ def objective_from_params(name: str, params: Mapping, *, device=None, dtype=None
     """The port's objective of problem ``name`` (a key of
     :data:`PROBLEM_PARAMS`) with the numeric parameters ``params`` (numbers
     or numpy arrays).  For ``"convolution"``, any of :data:`CONV_OPERATORS`
-    in ``params`` replace the port's own operators (all four, or none)."""
+    in ``params`` replace the port's own operators (all four, or none); for
+    ``"heat"``, :data:`HEAT_OPERATORS` (all six, or none) take the place of
+    the port's own mesh and assembly."""
     if name not in PROBLEM_PARAMS:
         raise KeyError(f"no parameter set for problem {name!r}; "
                        f"known: {sorted(PROBLEM_PARAMS)}")
@@ -115,10 +125,27 @@ def objective_from_params(name: str, params: Mapping, *, device=None, dtype=None
     if name == "fuller":
         return FullerObj(nt, state0=p["state0"], terminal_weight=float(p["terminal_weight"]),
                          terminal_frac=float(p["terminal_frac"]), **kw)
+    if name == "heat":
+        scalars = {k: float(p[k]) for k in PROBLEM_PARAMS["heat"][1:]}
+        ops = _operators(params, HEAT_OPERATORS)
+        if ops is None:
+            return HeatObj(nt, **scalars, **kw)
+        return HeatObj.from_operators(
+            nt, Sinv=ops[0], M_invF=ops[1], M=ops[2], yd=ops[3], state0=ops[4],
+            tau=float(ops[5]), **scalars, **kw)
     obj = ConvObj(nt, omega0=float(p["omega0"]), **kw)
-    given = [k for k in CONV_OPERATORS if k in params]
-    if given:
-        if len(given) != len(CONV_OPERATORS):
-            raise KeyError(f"give all of {CONV_OPERATORS} or none, got {given}")
-        obj.set_operators(*(np.asarray(params[k]) for k in CONV_OPERATORS))
+    ops = _operators(params, CONV_OPERATORS)
+    if ops is not None:
+        obj.set_operators(*ops)
     return obj
+
+
+def _operators(params: Mapping, names):
+    """The arrays ``params[name]`` for every name, or ``None`` if none is
+    given; raises ``KeyError`` for a partial set."""
+    given = [k for k in names if k in params]
+    if not given:
+        return None
+    if len(given) != len(names):
+        raise KeyError(f"give all of {names} or none, got {given}")
+    return [np.asarray(params[k]) for k in names]

@@ -1,10 +1,11 @@
 """Bundled problems: Lotka–Volterra fishing, double tank, Van der Pol,
-Fuller and convolution.  :mod:`.registry` names them, with their presets."""
+Fuller, convolution and heat.  :mod:`.registry` names them, with their presets."""
 
 from .convolution import ConvObj
 from .doubletank import DTMObj
 from .fishing import LVMObj
 from .fuller import FullerObj
+from .heat import HeatObj
 from .vanderpol import VPOObj
 
-__all__ = ["ConvObj", "DTMObj", "FullerObj", "LVMObj", "VPOObj"]
+__all__ = ["ConvObj", "DTMObj", "FullerObj", "HeatObj", "LVMObj", "VPOObj"]

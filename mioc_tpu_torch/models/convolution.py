@@ -20,7 +20,8 @@ single evaluation — the speculative trial wave decides on them — and a
 library product picks its algorithm (and its split of the sum) by shape.  So
 every product here has ONE shape: the rows go through in chunks of
 :data:`ROWS`, the last chunk padded with zeros, and a single evaluation is a
-padded chunk.  The sum of f is :func:`~mioc_tpu_torch.ops.tv.fold_sum`.
+padded chunk (:func:`~mioc_tpu_torch.ops.rows.chunked`).  The sum of f is
+:func:`~mioc_tpu_torch.ops.tv.fold_sum`.
 """
 
 from __future__ import annotations
@@ -31,11 +32,10 @@ import torch
 from .._device import resolve_device, resolve_dtype
 from ..objectives.base import LazyObjective
 from ..ops.levels import product_levels
+from ..ops.rows import ROWS, chunked
 from ..ops.tv import fold_sum
 
 __all__ = ["ConvObj", "gauss_legendre5", "ROWS"]
-
-ROWS = 16  # rows per matrix product: one shape for every call
 
 
 def gauss_legendre5(f, a, b):
@@ -69,21 +69,6 @@ def _mass_rows(mdiag, moff, v):
     out[..., :-1] += moff * v[..., 1:]
     out[..., 1:] += moff * v[..., :-1]
     return out
-
-
-def _chunked(fn, X):
-    """``fn`` over ``X (S, n)`` in chunks of exactly :data:`ROWS` rows (the
-    last one zero-padded), so every call of ``fn`` has one shape; returns
-    the S rows of the results, concatenated."""
-    S = X.shape[0]
-    out = []
-    for s0 in range(0, S, ROWS):
-        chunk = X[s0:s0 + ROWS]
-        n = chunk.shape[0]
-        if n < ROWS:
-            chunk = torch.cat([chunk, chunk.new_zeros((ROWS - n, *chunk.shape[1:]))])
-        out.append(fn(chunk.contiguous())[:n])
-    return out[0] if len(out) == 1 else torch.cat(out)
 
 
 class ConvObj(LazyObjective):
@@ -160,11 +145,11 @@ class ConvObj(LazyObjective):
     # There is no state, so the auxiliary output is None.
     def _forward_batch(self, xs):
         """``xs (S, nt, 1) → (f (S,), None)``."""
-        return _chunked(self._f_chunk, xs[..., 0]), None
+        return chunked(self._f_chunk, xs[..., 0]), None
 
     def _adjoint_batch(self, xs, aux):
         """``(xs (S, nt, 1), None) → (df (S, nt, 1), None)``."""
-        return _chunked(self._df_chunk, xs[..., 0])[..., None], None
+        return chunked(self._df_chunk, xs[..., 0])[..., None], None
 
     def _forward(self, x):
         f, _ = self._forward_batch(x[None])

@@ -15,9 +15,9 @@ auto-import, ``multi-trust.jl:15-20``), with the same names and presets:
 
 A factory is called as ``factory(nt=..., device=..., dtype=...)``: a plugin's
 objective takes ``device`` and ``dtype`` like the bundled ones (``None``
-meaning ``"cuda"`` and float64).  ``heat`` and ``mixed`` keep their names and
-presets but are not ported yet: building them raises ``NotImplementedError``
-naming the ROADMAP.md item that ports them.
+meaning ``"cuda"`` and float64).  ``mixed`` keeps its name and preset but is
+not ported yet: building it raises ``NotImplementedError`` naming the
+ROADMAP.md item that ports it.
 """
 
 from __future__ import annotations
@@ -52,8 +52,7 @@ _BUILTINS = {
     "doubletank": ("doubletank", "DTMObj", dict(beta=1e-5, delta0=2.0, p=np.inf)),
     "vanderpol": ("vanderpol", "VPOObj", dict(beta=0.1, delta0=1.0, p=np.inf)),
     "convolution": ("convolution", "ConvObj", dict(beta=1e-4, delta0=0.125, p=1)),
-    "heat": (None, "ROADMAP.md queue A item 3 (the FEM toolkit and dense PDE heat)",
-             dict(beta=1e-3, delta0=2.0, p=2)),
+    "heat": ("heat", "HeatObj", dict(beta=1e-3, delta0=2.0, p=2)),
     "mixed": (None, "ROADMAP.md queue A item 5 (mixed fishing and solvers/mixed.py, "
                     "with solvers/continuous.py)",
               dict(beta=1e-4, delta0=2.0, p=np.inf)),

@@ -37,6 +37,14 @@ float64 and float32, each bit-equal to the plain build: device ms, and ms
 per call with CUDA events (the host side included), the sizes in turns.
 The rule of ``bellman_cuda.batched_build_plan`` is read off this sweep.
 
+At the shape a heat solve runs (``HeatObj(nt=500)`` under its preset: nt=500,
+L=36, B=100, float64; :func:`heat_solve_section`) it takes the device ms of
+``dp_build``, ``chase`` and ``chase_trials`` (one table set, the preset's K=8
+halving caps) at S=1, and of ``dp_build_batched`` (under the cluster size its
+plan takes, and at C = 1), ``chase_batched`` and ``chase_trials`` (K=8) at
+S=8, each equal to its plain version.  ``--heat-only`` runs just that section
+(about a minute).
+
 It also samples the SM clock (``nvidia-smi --query-gpu=clocks.sm``) while
 ``dp_build`` runs back to back for a second at each shape: a kernel that
 keeps one SM busy may not lift the card to its full clock.  First of all,
@@ -629,7 +637,72 @@ def vec_section(U, phi0, btilde, B) -> list:
     return rows
 
 
-def main() -> int:
+HEAT_SOLVE = ("heat500", 500, 100, ("product", [list(range(6))] * 2), (2, 1e-3, 10.0 / 500))
+HEAT_CAPS = [100, 50, 25, 12, 6, 3, 1, 0]  # ⌊δ/Δt⌋, δ = 2, 1, …, at Δt = 0.02
+
+
+def heat_solve_section() -> dict:
+    """Device ms of the kernels at the heat solve's shape, S=1 and S=8,
+    float64, each equal to its plain version first."""
+    from .ops import backtrack_cuda as kc
+    from .ops import bellman as tb
+    from .ops import bellman_cuda as bc
+
+    name, nt, B, spec, preset = HEAT_SOLVE
+    out = {"shape": name, "nt": nt, "B": B, "dtype": "float64", "caps": HEAT_CAPS}
+    stage, btilde, jump, smax = _tables(nt, B, spec, preset, torch.float64, seed=40)
+    L = stage.shape[1]
+    U, phi0 = bc.dp_build(stage, btilde, jump, B, smax)
+    U_p, phi_p = tb.build_tables_plain(stage, btilde, jump, B, smax)
+    if not (torch.equal(U, U_p) and torch.equal(phi0, phi_p)):
+        raise RuntimeError("heat500: dp_build differs from the plain build")
+    one = (U[None], phi0[None], btilde[None])
+    caps1 = torch.tensor([HEAT_CAPS], dtype=torch.int32, device="cuda")
+    if not torch.equal(kc.chase(U, phi0, btilde, B), tb.backtrack_plain(U, phi0, btilde, B)) \
+            or not torch.equal(kc.chase_trials(*one, caps1),
+                               tb.backtrack_trials_plain(*one, caps1.cpu())):
+        raise RuntimeError("heat500: a chase differs from the plain walk")
+    out["S1"] = {
+        "L": L, "build_plan": bc.build_plan(nt, L, B, 8)._asdict(),
+        "dp_build_ms": device_ms(lambda: bc.dp_build(stage, btilde, jump, B, smax),
+                                 "dp_build_kernel"),
+        "chase_ms": device_ms(lambda: kc.chase(U, phi0, btilde, B), "chase_kernel"),
+        "chase_trials_ms": device_ms(lambda: kc.chase_trials(*one, caps1),
+                                     "chunked_chase_kernel")}
+
+    S = 8
+    tabs = [_tables(nt, B, spec, preset, torch.float64, seed=41 + s) for s in range(S)]
+    stage = torch.stack([t[0] for t in tabs])
+    btilde = torch.stack([t[1] for t in tabs])
+    U_p, phi_p = tb.build_tables_batched_plain(stage, btilde, jump, B, smax)
+    taken = bc.cluster_build_plan(S, nt, L, B, 8, smax)
+    builds = {}
+    for C in sorted({1, taken.C}):
+        Uc, phic = bc.dp_build_batched(stage, btilde, jump, B, smax, clusters=C)
+        if not (torch.equal(Uc, U_p) and torch.equal(phic, phi_p)):
+            raise RuntimeError(f"heat500 S=8: dp_build_batched at C={C} differs")
+        builds[C] = device_ms(lambda C=C: bc.dp_build_batched(stage, btilde, jump, B, smax,
+                                                              clusters=C), "dp_build_kernel")
+    capsS = torch.tensor([HEAT_CAPS[s % len(HEAT_CAPS)] for s in range(S)],
+                         dtype=torch.int32, device="cuda")
+    trials = torch.tensor([HEAT_CAPS] * S, dtype=torch.int32, device="cuda")
+    if not torch.equal(kc.chase_batched(U_p, phi_p, btilde, capsS),
+                       tb.backtrack_batched_plain(U_p, phi_p, btilde, capsS.cpu())) \
+            or not torch.equal(kc.chase_trials(U_p, phi_p, btilde, trials),
+                               tb.backtrack_trials_plain(U_p, phi_p, btilde, trials.cpu())):
+        raise RuntimeError("heat500 S=8: a batched chase differs from the plain walk")
+    out["S8"] = {
+        "taken_plan": taken._asdict(), "dp_build_batched_ms_by_C": builds,
+        "chase_batched_ms": device_ms(lambda: kc.chase_batched(U_p, phi_p, btilde, capsS),
+                                      "chunked_chase_kernel"),
+        "chase_trials_ms": device_ms(lambda: kc.chase_trials(U_p, phi_p, btilde, trials),
+                                     "chunked_chase_kernel")}
+    return out
+
+
+def main(argv=None) -> int:
+    import argparse
+
     from .ops import backtrack_cuda as kc
     from .ops import bellman as tb
     from .ops import bellman_cuda as bc
@@ -638,11 +711,18 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_kernels: CUDA is not available")
         return 3
+    ap = argparse.ArgumentParser(description="kernel timing experiments on the card")
+    ap.add_argument("--heat-only", action="store_true",
+                    help="only the kernels at the heat solve's shape")
+    args = ap.parse_args(argv)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     _kernels.build_all(_kernels.SOURCES + _kernels.PROBES)
+    if args.heat_only:
+        print(json.dumps({"heat_solve": heat_solve_section(), "nvidia_smi": smi}), flush=True)
+        return 0
     host = host_side()
     sweep = build_sweep()  # its per-call times before the first trace
     probe = _kernels.library("launch_probe").mioc_launch_probe
@@ -652,6 +732,7 @@ def main() -> int:
     print(json.dumps({"build_sweep": sweep, "nvidia_smi": smi}), flush=True)
     print(json.dumps({"batched": batched_section(), "nvidia_smi": smi}), flush=True)
     print(json.dumps({"phase_costs": phase_costs(), "nvidia_smi": smi}), flush=True)
+    print(json.dumps({"heat_solve": heat_solve_section(), "nvidia_smi": smi}), flush=True)
     bodies = {name: _body_variant(name) for name in BODY_VARIANTS}
     for name, nt, B, spec, preset in SHAPES:
         stage, btilde, jump, smax = _tables(nt, B, spec, preset, torch.float64)

@@ -17,10 +17,10 @@ whole loop as ``lax.while_loop``s inside one ``jit`` and batches starts with
   ``outer_unroll``/``inner_unroll`` run that many guarded steps per read.
 
 Per-start arithmetic does not depend on the batch: the sweeps, ``tv_rows``
-and ``iv_rows`` compute every row with elementwise ops and fixed pairwise
-folds, so a start of a multistart, or a trial of a wave, has the bits of the
-single evaluation, and the speculative wave makes the sequential loop's
-decisions.
+and ``iv_rows`` compute every row with elementwise ops, fixed pairwise folds
+and fixed-shape product chunks (``ops.rows``), so a start of a multistart,
+or a trial of a wave, has the bits of the single evaluation, and the
+speculative wave makes the sequential loop's decisions.
 
 DP route: the tables are built and chased where the tensors are
 (``use_pallas``/``dp_backend`` as :func:`~.trm.dp_route` reads them).  On
@@ -85,8 +85,9 @@ class DeviceTRMResult(NamedTuple):
 
 class _Carry(NamedTuple):
     u_old: torch.Tensor        # (S, nt, nx)
-    ys_old: torch.Tensor       # (nt, S, ny): the state cache at u_old, or
-                               # None for an objective without a state
+    ys_old: torch.Tensor       # (nt, S, ny) (ODE) or (nt+1, S, N) (PDE): the
+                               # state cache at u_old, time-major, or None
+                               # for an objective without a state
     J_old: torch.Tensor        # (S,)
     TV_old: torch.Tensor       # (S,)
     u_cand: torch.Tensor       # (S, nt, nx)
@@ -289,6 +290,9 @@ def make_device_trm(obj, par, use_pallas: Optional[bool] = None,
         first = torch.argmax(exit_k.to(torch.int32), 1)       # first True
         sel = torch.where(has, first, torch.full_like(first, K - 1))
         rows = torch.arange(S, device=dev)
+        # ys is time-major, rows on axis 1: (nt, S·K, ny) for an ODE, (nt+1,
+        # S·K, N) for a PDE (rows sliced from a padded buffer: splitting axis
+        # 1 keeps its stride, so the view holds).
         ys_new = None if ys_b is None else ys_b.view(ys_b.shape[0], S, K, -1)[:, rows, sel]
         c = accept(c, us[rows, sel], ys_new, J_news[rows, sel], TV_news[rows, sel],
                    has & optimal_k[rows, sel], has & good_k[rows, sel])

@@ -71,7 +71,7 @@ def test_cli_multistart_and_metrics(capsys, tmp_path):
 
 @pytest.mark.parametrize("argv,item", [
     (["mixed", "--n", "32", "--no-plot"], "item 5"),
-    (["heat", "--n", "32", "--no-plot"], "item 3"),
+    (["heat", "--n", "32", "--device-loop"], "item 7"),
     (["fishing", "--n", "32"], "item 7"),
     (["fishing", "--n", "32", "--no-plot", "--dp-backend", "temporal"], "item 6"),
 ])

@@ -9,7 +9,8 @@ a machine with a card and no JAX it runs without the repo's conftest::
 The shapes here cover what ``chip_smoke.py`` does not: the int32 U route
 (L > 127), nt = 1, S = 1 and Kt = 1, budgets past B and of 0, tables
 expanded along the start axis, the wrappers' refusals and the solves'
-launch counters at a small size.
+launch counters at a small size (fishing and heat), and the heat sweeps' rows
+bit-equal to single evaluations on the card.
 """
 
 import numpy as np
@@ -232,6 +233,86 @@ def test_small_multistart_counts_launches(cuda_device):
     assert n3[0] - n2[0] == int(one.iterations) and n3[3] - n2[3] == int(one.iterations)
     np.testing.assert_array_equal(one.u, seq.u[1])
     ref = multistart_solve_device(LVMObj(nt=128, device="cpu"), par, x0s)
+    np.testing.assert_array_equal(ref.u, seq.u)
+    np.testing.assert_array_equal(ref.inner_steps, seq.inner_steps)
+    np.testing.assert_allclose(ref.J, seq.J, rtol=1e-12)
+
+
+# ------------------------------------------------------------ heat
+
+
+def _heat(nt, refinements, device):
+    from mioc_tpu_torch.models.heat import HeatObj, construct_mesh
+
+    return HeatObj(nt=nt, mesh=construct_mesh(refinements=refinements), device=device)
+
+
+@pytest.mark.parametrize("rows", [1, 2, 9, 17, 40])
+def test_heat_rows_bit_equal_single_on_card(cuda_device, rows):
+    """Every row of a batched heat forward and adjoint on the card has the
+    single evaluation's bits (fixed-shape product chunks, fold sums)."""
+    obj = _heat(24, 2, cuda_device)
+    rng = np.random.default_rng(rows)
+    xs = torch.as_tensor(rng.integers(0, 6, size=(rows, 24, 2)).astype(float),
+                         device=cuda_device)
+    f, ys = obj._forward_batch(xs)
+    df, lam = obj._adjoint_batch(xs, ys)
+    for r in range(rows):
+        f1, y1 = obj._forward(xs[r])
+        d1, l1 = obj._adjoint(xs[r], y1)
+        assert torch.equal(f1, f[r]) and torch.equal(y1, ys[:, r])
+        assert torch.equal(d1, df[r]) and torch.equal(l1, lam[r])
+
+
+def test_heat_host_solve_on_card_equals_cpu(cuda_device):
+    from mioc_tpu_torch.ops.backtrack_cuda import chase
+    from mioc_tpu_torch.ops.bellman_cuda import dp_build
+    from mioc_tpu_torch.solvers.trm import TRMParameters, trm_solve
+
+    par = TRMParameters(beta=1e-3, delta0=2.0, p=2)
+    n_b, n_c = dp_build.launches, chase.launches
+    res = trm_solve(_heat(40, 2, cuda_device), par, seed=0)
+    assert (dp_build.launches - n_b, chase.launches - n_c) == (res.dp_builds, res.inner_steps)
+    ref = trm_solve(_heat(40, 2, "cpu"), par, seed=0)
+    assert (res.iterations, res.inner_steps, res.f_evals) == (
+        ref.iterations, ref.inner_steps, ref.f_evals)
+    np.testing.assert_array_equal(res.u, ref.u)
+    np.testing.assert_allclose(res.J, ref.J, rtol=1e-12)
+
+
+def test_heat_device_loop_and_multistart_count_launches(cuda_device):
+    """The device loop chases its wave with chase_trials (the PDE default);
+    the multistart builds with dp_build_batched and chases with
+    chase_batched (sequential) or chase_trials (speculative, the PDE
+    default); speculative equals sequential, and start s the single solve."""
+    from mioc_tpu_torch.ops.backtrack_cuda import chase, chase_batched, chase_trials
+    from mioc_tpu_torch.ops.bellman_cuda import dp_build, dp_build_batched
+    from mioc_tpu_torch.solvers.trm import TRMParameters
+    from mioc_tpu_torch.solvers.trm_device import multistart_solve_device, trm_solve_device
+    from mioc_tpu_torch.utils.init import rand_func
+
+    par = TRMParameters(beta=1e-3, delta0=2.0, p=2)
+    obj = _heat(24, 1, cuda_device)
+    x0s = np.stack([rand_func(obj, seed=s) for s in range(3)])
+    kernels = (dp_build, chase, dp_build_batched, chase_batched, chase_trials)
+    n0 = [k.launches for k in kernels]
+    one = trm_solve_device(obj, par, x0=x0s[1])
+    n1 = [k.launches for k in kernels]
+    it = int(one.iterations)
+    assert [b - a for a, b in zip(n0, n1)] == [it, 0, 0, 0, it]
+    spec = multistart_solve_device(obj, par, x0s)
+    n2 = [k.launches for k in kernels]
+    seq = multistart_solve_device(obj, par, x0s, speculative=False)
+    n3 = [k.launches for k in kernels]
+    its = int(seq.iterations.max())
+    assert [b - a for a, b in zip(n1, n2)] == [0, 0, its, 0, its]
+    assert [b - a for a, b in zip(n2, n3)][:3] == [0, 0, its] and n3[4] == n2[4]
+    assert n3[3] - n2[3] >= its
+    for name in spec._fields:
+        np.testing.assert_array_equal(getattr(spec, name), getattr(seq, name))
+    np.testing.assert_array_equal(one.u, seq.u[1])
+    assert float(one.J) == float(seq.J[1])
+    ref = multistart_solve_device(_heat(24, 1, "cpu"), par, x0s)
     np.testing.assert_array_equal(ref.u, seq.u)
     np.testing.assert_array_equal(ref.inner_steps, seq.inner_steps)
     np.testing.assert_allclose(ref.J, seq.J, rtol=1e-12)

@@ -46,7 +46,10 @@ def test_port_modules_found():
             "solvers/trm.py", "solvers/trm_device.py", "parallel/__init__.py",
             "parallel/batch.py", "interop.py", "cli.py", "models/registry.py",
             "models/convolution.py", "models/doubletank.py", "models/vanderpol.py",
-            "models/fuller.py", "utils/io.py"} <= names
+            "models/fuller.py", "utils/io.py", "fem/__init__.py", "fem/quadrature.py",
+            "fem/_native_triangle.py", "fem/mesh.py", "fem/fe.py", "fem/assembly.py",
+            "fem/solve.py", "ops/detred.py", "ops/rows.py", "objectives/pde.py",
+            "models/heat.py"} <= names
     assert (ROOT / "chip_smoke.py").exists()
 
 
