@@ -106,7 +106,31 @@ Run from the root of a checkout.  It builds the CUDA kernels from
    the S=8 batched kernels with the preset's 8 halving caps; ``chase_trials``
    on one table set with those caps), each held against its plain version;
    and where each heat path's time goes: the sweeps (evaluations × ms per
-   batch), the kernels (launches × ms per call at that shape), the rest.
+   batch), the kernels (launches × ms per call at that shape), the rest;
+8. drives large-mesh heat, ``heat_large``: the JAX package's own large-mesh
+   configuration ``HeatObj(nt=200, mesh_hierarchy=
+   construct_mesh_hierarchy(refinements=5), solver="mg", cg_iters=12,
+   sparse_format="banded")`` at float64 (N = 8321 P2 dofs, the banded
+   spec R = 66, D = 7, rb = cb = 128, 5 multigrid levels; L = 36, B = 40):
+   the host operators (RCM permutation, packed K and M, every level's K/P/R
+   blocks, 1/diag(K), the coarse inverse) against the JAX package's
+   (``LARGE_OPS``); f and ∇f at ``rand_func(obj, seed=0)`` against its
+   values (``LARGE_F``, ``LARGE_DF_B64``) within the measured tolerances;
+   the rows of a 16-row batch at nt=200 and of 1, 2, 8, 9, 16 and 17-row
+   batches at nt=20 bit-equal to single evaluations (and whether one
+   product at the natural width would be); ms per fine banded application
+   against its bound; the host loop ``trm_solve`` and the device loop
+   ``trm_solve_device``, speculative and sequential, from seed 0 under the
+   heat preset capped at ``LARGE_MAXITER`` outer iterations: the JAX
+   package's iterations, inner steps, evaluations and J (``LARGE_REF``),
+   the device loops equal to the host loop's iterates and to each other
+   field for field, through ``dp_build`` and ``chase`` (host and sequential)
+   or ``chase_trials`` (speculative) and no plain DP; the ELL engine's f
+   and ∇f at the same model against the banded engine's; then the kernels
+   at nt=200, L=36, B=40 (single, S=8 batched, one table set's wave), where
+   each large path's time goes, and last (a profiler trace slows every
+   later launch) the kernels per fine application and per sweep step
+   (``profile_kernels.large_sweep_section``).
 
 Each finding is printed as one JSON object per line; the ``kernels`` line
 comes next to last and the last line is
@@ -1026,7 +1050,160 @@ REF8_HEAT_J = (780.5854728417946, 780.6982227170389, 780.7230210272979, 780.6790
 HEAT_ROWS = (1, 2, 8, 9, 16, 17, 64, 72)
 
 
-def heat_wave_phase(torch, caps, seed) -> dict:
+# Large-mesh heat (ROADMAP.md queue A item 4): the JAX package's own large-
+# mesh configuration (benchmarks/heat_banded_tpu.py:37-41) at nt=200, on the
+# card at float64: HeatObj(nt=200, mesh_hierarchy=construct_mesh_hierarchy(
+# refinements=5), solver="mg", cg_iters=12, sparse_format="banded"): N = 8321
+# P2 dofs in RCM order, K and M in 66 block rows of 7 block diagonals (rb = cb
+# = 128), a V-cycle over 5 levels; L = 36 and B = 40 at the preset's δ₀ = 2,
+# τ = 0.05.
+LARGE_NT = 200
+LARGE_N = 8321
+LARGE_LEVELS = 5
+LARGE_SHAPE = ("heat200", LARGE_NT, 40, ("product", [list(range(6))] * 2),
+               (2, 1e-3, 10.0 / LARGE_NT))
+LARGE_KSPEC = (8321, 8321, 128, 128, (-3, -2, -1, 0, 1, 2, 3), 66, 66)
+# Row counts of the row check (those the paths use, 1 and 8, and the chunk
+# edges around ROWS = 16), at the cut depth LARGE_ROWS_NT (the bits do not
+# depend on nt, and 20 steps cost a tenth of 200); at nt=200 a 16-row batch.
+LARGE_ROWS = (1, 2, 8, 9, 16, 17)
+LARGE_ROWS_NT = 20
+# The JAX package's host operators of the same model (banded engine, float64,
+# the CPU), for the RCM permutation, the packed K and M, and every level's
+# K/P/R blocks, 1/diag(K) and the coarse inverse: the sha256 prefix of the
+# nonzero pattern, then the sum, the sum of |a| and the sum of a², then the
+# sha256 prefix of the bytes (the permutation: of its int32 bytes).  From
+#   JAX_PLATFORMS=cpu python -c "import jax, hashlib, numpy as np
+#   jax.config.update('jax_enable_x64', True)
+#   from mioc_tpu.models.heat import HeatObj, construct_mesh_hierarchy
+#   o = HeatObj(nt=200, mesh_hierarchy=construct_mesh_hierarchy(refinements=5),
+#               solver='mg', cg_iters=12, sparse_format='banded')
+#   h = lambda a: hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
+#   print(h(o.dof_perm)); a = np.asarray(o._Kblk)
+#   print(h(np.packbits(a != 0)), a.sum(), np.abs(a).sum(), (a * a).sum(), h(a))"
+# and the same for _Mblk, _mg_ops["levels"][l][k] and _mg_ops["coarse_inv"].
+LARGE_OPS = {
+    "perm": ("ee9cbfe52425ff62",),
+    "K": ("88a2fd1e14e2967b", 4.048000000000011, 4373.470222222224, 664.7921332626877,
+          "49c725c5bdbac2ac"),
+    "M": ("88a2fd1e14e2967b", 4.000000000000001, 7.200000000000003, 0.0016092441700122989,
+          "c7a23637c2831baa"),
+    "coarse_inv": ("fab5c5a403499bc9", 79.8168613199358, 89.63643496279101,
+                   408.5542622665614, "b34d340a282e32b5"),
+    "levels": (
+        {"Kblk": ("88a2fd1e14e2967b", 4.048000000000011, 4373.470222222224,
+                  664.7921332626877, "49c725c5bdbac2ac"),
+         "Pblk": ("408f3ee3ae9318af", 8321.0, 10641.0, 6191.0, "797ffe5835ab38a3"),
+         "Rblk": ("537673c59a9e1684", 8321.0, 10641.0, 6191.0, "33eee533240a472e"),
+         "dinv": ("11ee6171c554b2e6", 34945.394067239344, 34945.394067239344,
+                  155775.53621409158, "7e84dba42c846948")},
+        {"Kblk": ("b4637318678ffaa8", 4.048000000000111, 1094.754222222222,
+                  166.04820307282307, "c090548402730ac9"),
+         "Pblk": ("73b80ec23c39781f", 2113.0, 2697.0, 1576.0, "f74806c8f7514a8c"),
+         "Rblk": ("658bcf11078c3104", 2113.0, 2697.0, 1576.0, "974db7d7401b8cda"),
+         "dinv": ("4acd2d1f71e4934e", 9157.814752620856, 9157.814752620856,
+                  43908.73159743365, "739cd924f95fdea6")},
+        {"Kblk": ("147839172ccee11b", 4.0480000000001155, 275.44038194444454,
+                  41.890731766494106, "4e456a13e55647f8"),
+         "Pblk": ("1f9b114f917f9d9a", 545.0, 693.0, 408.5, "908ef972171db5e9"),
+         "Rblk": ("d978eb3acc363fdf", 545.0, 693.0, 408.5, "8abd714cb24cbf78"),
+         "dinv": ("5f1c69775a30fdd1", 2494.384766460684, 2494.384766460684,
+                  13621.064895296764, "2cb228c58b0bd3e2")},
+        {"Kblk": ("abad36cd4918d0a6", 4.0480000000001155, 70.63285633680563,
+                  11.093473466223726, "4ce00d09c251e812"),
+         "Pblk": ("98111257dd3c5061", 145.0, 183.0, 109.75, "06affe9c8e47bad0"),
+         "Rblk": ("7f2d837aebe7c9d6", 145.0, 183.0, 109.75, "fe26e5a439ce34e9"),
+         "dinv": ("12bc1fa7e546d130", 716.8306922368027, 716.8306922368027,
+                  4731.678114745886, "24b24057446c89d3")},
+        {"Kblk": ("223f735824245341", 4.048000000000116, 19.43226435004347,
+                  3.613514897497089, "6ebf5ba46d84104d"),
+         "Pblk": ("0e378758046b2fa2", 41.0, 51.0, 31.625, "a0c8b3be98408468"),
+         "Rblk": ("75ec3d09aa7efd16", 41.0, 51.0, 31.625, "e5aa57b33d0a50fc"),
+         "dinv": ("9c8d8bbea28c3ffc", 210.9419710424321, 210.9419710424321,
+                  1593.034117841704, "d421bb54f1ce0503")},
+    ),
+}
+# The JAX package's f and ∇f of that model at rand_func(obj, seed=0) on the
+# CPU at float64, its banded engine (o as above; x = rand_func(o, seed=0);
+# o.x = x; f = o.eval_f_(); o.eval_df_(); ∇f = np.asarray(o.df), (200, 2),
+# its little-endian float64 bytes in base64).
+LARGE_F = 1953.2363935092235
+LARGE_DF_B64 = (
+    "mmhusE0RW8AQHbJykCxbwLIEI7j/vVnAJnf3jvvbWcDtxU5XO61ZwCeJTx2zzFnACHVAx66eWcDmX3wab75Z"
+    "wLBahrZlklnAk2vOvhKxWcD2rOMT64VZwAw8SlyhpFnAFAM6oYx5WcBZULqyPplZwAUUn0mTbVnAvb3LMjqP"
+    "WcCwOdiKY2JZwN+sBDMwh1nANCyc4rhVWcB9kzRYdHxZwMx1Mdr0R1nAAkBB9qZvWcBmToB7VzlZwHXuuYUg"
+    "YVnAoNjwVxYqWcATnRBLFVFZwFU/Zb5tGlnABnf9B6Y/WcDqaaY5twpZwGWyL5/oLFnAxoipcaL4WMCDDIsL"
+    "7BhZwEZi6b2B5FjAWOnuGrsDWcC0mltGgc5YwKsQwGVd7VjAJJxOSLm2WMBQJZKO2NVYwGFnCos2nVjAo7qj"
+    "KDG9WMDpQRie/oFYwOmjVlxro1jAh0huEBJlWMBrICpbi4hYwBq0ZpBtRljAuJlSsJVsWMCZVtNgCiZYwC17"
+    "73aPT1jAiEvMUN4DWMC6/it7fjFYwCSgvj7b31fAUtlOSGkSWMBwFpIQ7rlXwAhJuSJX8lfAI8TJ5fyRV8Cj"
+    "SevpT9FXwI28Ew7kZ1fACdnJ21uvV8DEoqLicDtXwDNgCjCDjFfACM+cwlgMV8DK+kaCzWhXwFY8n30o2lbA"
+    "aTpoBkFEV8CyCSOWI6RWwPz4XpThHlfAW45rQv1oVsB9xr29r/hWwPSWI4v/MVbADpzqbqvRVsBDPKE13/1V"
+    "wI107r3TqVbA56Of7uLLVcDv1PuGKYFWwKM3pmScm1XA+3HReK5XVsDElAe0x2xVwD149RJkLVbAl9L+Dzs/"
+    "VcCgsMrISgJWwPKj0hreElXAlbQnV2HWVcAkhkBFpedUwG9LGEmkqVXAYFRci4+9VMBUsKijDXxVwEWI9NGl"
+    "lFTAQQ5lsZRNVcAceyCu+2xUwF3W5ugtHlXAuzJ4zLFGVMC+/YPsyu1UwNkB2rP6IVTAn9mZolq8VMCtsSCM"
+    "I/9TwK/ezWPJiVTAwnVyjqTeU8DS9X8yAVZUwEVyOapBwVPAbMtY1OkgVMCYk+duUahTwAEKP3Fo6lPAMCWO"
+    "0pWKU8Cj0+7uWrJTwDxDBh5oaVPAbchQ6pR4U8CLNxSAkUVTwC18QMjXPFPAoPfhj5EfU8BcjAh5yv5SwPpS"
+    "jlu+91LAfc7Ntem9UsAntsMpVM5SwImNsO1neVLAKHMuuH2jUsByNi675i9SwFviRy9cd1LAFGhKRJ7qUcCd"
+    "Yt8vCkpSwPrFDTwxqFHA0ylRgKAbUsDo5U4C1GdRwCLEy3c27FHA7taLlgUpUcBsa67v4btRwFbn9sFu61DA"
+    "g6+jFreKUcBx/Jpi0a5QwFWZ/ErIWFHAg1gVQ/9yUMBDbcgGJiZRwDGNGMrUN1DArV8H3d7yUMDaqkaBa/pP"
+    "wAGG3IP/vlDAAibJkxaGT8Dku0jnkopQwCY+8iGFEk/ALdynQKJVUMAqiP/Ml59OwMciDDA1IFDAQJ0USjQt"
+    "TsC+Y7yqo9RPwDiklIdEu03ACKeQz/lnT8CUqbEQtklNwDgW1JRz+k7AmnFInHnYTMAUgEg7FYxOwMITDLuC"
+    "Z0zAfD4KmeAcTsAWGFWdx/ZLwG7M9SvVrE3AnLym60CGS8CEbwQj8DtNwFBoyK7pFUvA5gsDXizKTMABK4lF"
+    "v6VKwOpp32KCV0zA6VgkZ8E1SsACxXtH6ONLwA5G8jHyxUnA4Jp6jlFvS8DOfLdGVlZJwB/3rvSu+UrAN5Gf"
+    "8fTmSMCuQ6kr7oJKwM+h52LYd0jAS3n0e/kKSsASv636DQlIwKs2lUa3kUnAzIKvraaaR8COOoBYCRdJwLwM"
+    "uoy3LEfAp27D+suaSMAUSZJ/Wr9GwJVtxJzUHEjA5xP8UK9SRsCc6yPf75xHwDhiI0Ld5kXAxaa3nd4aR8Ag"
+    "NyuNFXxFwIl5MU5RlkbAOay2qJcSRcCPfW9/4A5GwPH9mBO5qkTA224uNQCERcBh4A3c9EREwIaPJaLp9ETA"
+    "gD3d1w3iQ8CaY8E4cGBEwJt54lR5fUPAWDIiyq/EQ8BqBAsP8xdDwL2VxKZZHkPAPxPTteexQsA/DfHjloRC"
+    "wHdelHefS0LA+pJXwxr0QcA96gqGTuVBwH91IFsFa0HAiQgUxyR/QcAUInVPM+hAwN75NzZRGUHApMGUzu1q"
+    "QMDbI2HTA7RAwE6xDxKI5T/ALBz/6G9PQMBWiaET8/4+wKqsTwOg1z/AAumzogMiPsDSVtSG2hI/wB7dnZkQ"
+    "Tz3AMOf17FpRPsBQ3QAPFYc8wC4kDqZelD3AEgsa5DDMO8CUiBpdEt48wPhLJeVACzvAKKyOzRwbPMDQgfgG"
+    "FUY6wMIf7z61TDvAfF1OM9d8OcCeAyxawXE6wOIuEobOuTjAIkoArrWdOcDGnZ+tg/w3wBbnuGd/zjjAnlkg"
+    "SSlFN8BAqwC98wI4wOp9BUiXlDbAnmHvA0g6N8CX65KQmew1wApf2U23czbAsVKZhv9ENcBJrV7/zrk1wDT/"
+    "UsFLoTTAP0tB68MNNcARmkUuL+8zwJt7y4E6XDTAvYeABxYxM8CihltuU6czwFrlvbLXZzLATpXDwDPwMsDa"
+    "Y9K9I5MxwMzIOuGANzLA/fg85WqxMMAqg1+hl30xwJrgJXRifi/AFQKI3qbCMMC2Q8F5MrEtwJ3fgnDHBjDA"
+    "oP6tdNjzK8BubxCbCZQuwMSWaI8uQirAGIE1sNQYLcCiKRH9tZkowKZHLaEHnCvAmKeDdNj4JsBGSQiTuB0q"
+    "wAKawGGIXiXA6kGsXPmdKMDajXQCDcojwHJnrIXUHCfA/k0QkOQ6IsA+1f1QSpolwHDeAxuysCDAJMd3lE0W"
+    "JMAw6TFzY1YewNxZB+W/kCLAFIXc9l9UG8BiVMZhbAkhwEj+1EUFWxjAGCDODQAAH8Dw9RQTAmoVwJCzioj7"
+    "5xvAOEJ39PSAEsA0+K6gVskYwJRmUJmgPg/AoO8DcOKhFcAMSeMIW4gJwFLyYglHbhLA1AnajwDcA8DcbUKa"
+    "clIOwPCjqKUfaPy/SHeA0NyTB8AoKUN1owzxv6ys8ECJgQDA4A/NQ5/q2L+YisINkPTzv8DiTpjCh9A/IJ9m"
+    "qt323r+AeQ1e/CbsP0DIsVgZJM4/4PKMaRqf9z+wrb4iEU7tP0AihxZcYwBAAAMhzLL2+D98DQxVDsUEQF6X"
+    "uDqhXQFAYvj5+JjzCEC07P0aYfwFQEBClzjp7AxAxOmBCvdXCkCMQVztu1YQQEA06ADcbg5A6ZV8BqcXEkBV"
+    "YJUqYx4RQHh/kIzosxNAlEQUfkTcEkCDQARhi1AVQEBo6rG6lhRACYcwOkPoFkBvReQwA0kWQEiG6nsUeBhA"
+    "AsWKnZvwF0CaySHjNP4ZQOKPAl4ljBlA6kRRvYR5G0DnTXop4RobQOOTRTNJ6RxApCwLSGucHEBGM2iZBU0e"
+    "QP50hJKWEB5Afmw+8GSkH0DKN4NvV3cfQM4RRz6WdyBAe/JX4VtoIEBgeX7rmRYhQPmWChxoDiFAwWLJRjCv"
+    "IUD63geH4q0hQGnTvjRSQSJA30+Iu+JGIkAoEdcH/8wiQIqr/KeG2SJAEPeyHz5SI0DDfg269GUjQESFzUoi"
+    "0SNAMA/mzV/sI0DgeIbZz0kkQHICCdUNbSRA2DblLYe8JECpOeoDY+gkQExJP063KSVAwm1HEfVeJUDlARHd"
+    "H5IlQKiC6++t0SVAfTv8cBP3JUB4ibgGD0ImQG6VaPcFWyZADfCBnsCyJkAK+CoqN6smQDbO/KE9ESdAIioD"
+    "JAjqJkChgMfaKmAnQAufN2SjGCdAtiQJLgGhJ0Bd0uvFhTcnQMLq8a+Z1CdANhqWPbdGJ0CtEaHravsnQK2v"
+    "dsHcRSdAesootKEVKEAc1ho5MDQnQALaXQQkIyhAfzqCNl4QJ0A+H8m/gCMoQP2tZi4+2CZA5IYI9MYVKEBU"
+    "+ygHSIgmQMSAbZcz+CdA3nVb8IAaJkC8NL6piscnQBDwW0wqhCVA/6MrLKh9J0DLILCt2w4lQDGDASgCVSdA"
+    "88eWAK6uJECHn8EjukonQEWtafbucSRAOGli3Qc1J0Amjpt70FQkQGQs1g88FidAVdCX6x9XJEBwXNWVZe8m"
+    "QC0Hh7YwfCRALPf43BXBJkAMINuggswkQILDyd7eiyZAfJs+5DX8JECD0yP8XjkmQG83uARfFCVAg0qvTkPF"
+    "JUBihHTHrQIlQH2bi4wEUyVAubSP1pTEJEB/men19NgkQK6CTM9eTy5AnH/AH45LLkA="
+)
+# Tolerances of the port against the JAX package: 10 × the largest gap
+# measured on the CPU at the meshes refined 1–4 times (N = 41 … 2113; nt=40,
+# mg-CG 12, banded, rand_func seeds 0–2; the port at its CPU default): f
+# 7.9e-15 relative, ∇f 2.04e-14 of max |∇f|; the port's ELL engine against
+# its banded one: f 1.1e-14, ∇f 3.4e-14.
+# The solves are capped: an outer iteration costs two sweeps of 4.5–7 s on
+# the card (an adjoint and a forward; PERF.md §5), the JAX package's run
+# accepts every step at its first trial and has not converged after 8 (heat
+# at nt=500 takes 223), and three loops to convergence would take far more
+# than the phase's ~150 s; at 2 iterations they take ~90–120 s.  The JAX
+# package's host trm_solve from seed 0 under the heat preset with
+# maxiter=2, its banded engine on the CPU at float64 (o as above;
+# trm_solve(o, TRMParameters(beta=1e-3, delta0=2.0, p=2, maxiter=2),
+# seed=0)): iterations, inner steps, f and ∇f evaluations, J.
+LARGE_MAXITER = 2
+LARGE_REF = (2, 2, 3, 3, 1584.0058808074555)
+LARGE_TOL_F = 8e-14
+LARGE_TOL_DF = 2.1e-13
+LARGE_TOL_ELL_F = 1.1e-13
+LARGE_TOL_ELL_DF = 3.4e-13
+
+
+def heat_wave_phase(torch, caps, seed, shape=HEAT_SHAPE) -> dict:
     """``chase_trials`` on ONE table set with the preset's K halving caps (the
     single device solve's wave, ``wave_chase="trials"``) at the heat solve's
     shape, float64: equal to the plain walk of each cap, timed in turns with
@@ -1036,7 +1213,7 @@ def heat_wave_phase(torch, caps, seed) -> dict:
     from mioc_tpu_torch.ops.backtrack_cuda import chase_plan, chase_trials
     from mioc_tpu_torch.ops.bellman_cuda import dp_build
 
-    _, nt, B, (_, V), (p, beta, tau) = HEAT_SHAPE
+    name, nt, B, (_, V), (p, beta, tau) = shape
     adm = lv.product_levels(V)
     L = adm.L
     rng = np.random.default_rng(seed)
@@ -1062,7 +1239,7 @@ def heat_wave_phase(torch, caps, seed) -> dict:
     nbytes = L * (B + 1) * ds + K * ((nt - 1) * (us + 4) + nt * 4 + 4)
     ops = K * (L * (B + 1) + (nt - 1))
     bd_ms, bd_by = bound(nbytes, ops, "float64")
-    out = {"phase": "wave_kernels", "shape": "heat500", "dtype": "float64", "S": 1,
+    out = {"phase": "wave_kernels", "shape": name, "dtype": "float64", "S": 1,
            "K": K, "nt": nt, "L": L, "B": B, "caps": caps,
            "chase_trials": {"max_abs_err": err, "kernel_ms": ms, "plain_ms": plain,
                             "ns_per_step": ms * 1e6 / (nt - 1), "bound_ms": bd_ms,
@@ -1247,6 +1424,287 @@ def check_heat_multistarts(seq, spec, single) -> None:
                 f"heat speculative multistart == sequential: {field}")
 
 
+def large_summary(a) -> tuple:
+    """:data:`LARGE_OPS`' summary of one host array."""
+    import hashlib
+
+    def h(b):
+        return hashlib.sha256(np.ascontiguousarray(b).tobytes()).hexdigest()[:16]
+
+    a = np.asarray(a)
+    if a.dtype.kind != "f":
+        return (h(a),)
+    return (h(np.packbits(a != 0)), float(a.sum()), float(np.abs(a).sum()),
+            float((a * a).sum()), h(a))
+
+
+def large_operators(obj) -> dict:
+    """The port's host operators of the large model against the JAX
+    package's (:data:`LARGE_OPS`): the permutation and every nonzero
+    pattern equal, every sum, |sum| and square sum to rtol 1e-12 (of the
+    |sum| for the sum, which cancels); whether the bytes are equal too is
+    printed (numpy and scipy of other versions may round otherwise)."""
+    arrays = {"perm": obj.dof_perm, "K": obj._Kblk_host, "M": obj._Mblk_host,
+              "coarse_inv": obj._mg_host["coarse_inv"]}
+    for l, L in enumerate(obj._mg_host["levels"]):
+        arrays.update({f"level{l}.{k}": L[k] for k in ("Kblk", "Pblk", "Rblk", "dinv")})
+    want = {k: LARGE_OPS[k] for k in ("perm", "K", "M", "coarse_inv")}
+    for l, L in enumerate(LARGE_OPS["levels"]):
+        want.update({f"level{l}.{k}": v for k, v in L.items()})
+    require(arrays.keys() == want.keys(), f"heat_large: operator set {sorted(arrays)}")
+    bytes_equal = {}
+    for name, a in arrays.items():
+        got, ref = large_summary(a), want[name]
+        require(got[0] == ref[0], f"heat_large: {name} pattern (or permutation) equal to JAX")
+        if len(ref) > 1:
+            scale = (ref[2], ref[2], ref[3])  # |sum| scales the sum and itself
+            for g, r, sc, what in zip(got[1:4], ref[1:4], scale, ("sum", "abs", "sq")):
+                require(abs(g - r) <= 1e-12 * sc, f"heat_large: {name} {what} {g!r} == JAX {r!r}")
+            bytes_equal[name] = got[4] == ref[4]
+    return bytes_equal
+
+
+def large_values(torch, obj, x0) -> dict:
+    """f and ∇f at ``x0`` (one row) against the JAX package's, and their
+    walls."""
+    import base64
+
+    x = torch.as_tensor(x0, dtype=obj.dtype, device=obj.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    f, ys = obj._forward(x)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    df, lam = obj._adjoint(x, ys)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    df_ref = np.frombuffer(base64.b64decode("".join(LARGE_DF_B64)), dtype="<f8").reshape(
+        LARGE_NT, 2)
+    f_err = abs(float(f) - LARGE_F) / abs(LARGE_F)
+    df_err = float(np.abs(df.cpu().numpy() - df_ref).max() / np.abs(df_ref).max())
+    out = {"f": float(f), "jax_f": LARGE_F, "f_rel_err": f_err, "f_tol": LARGE_TOL_F,
+           "df_err_of_max": df_err, "df_tol": LARGE_TOL_DF,
+           "forward_s": t1 - t0, "adjoint_s": t2 - t1}
+    require(f_err <= LARGE_TOL_F, f"heat_large: f {float(f)!r} within {LARGE_TOL_F} of JAX")
+    require(df_err <= LARGE_TOL_DF, f"heat_large: ∇f within {LARGE_TOL_DF} of JAX ({df_err})")
+    return out, (f, ys, df, lam)
+
+
+def large_rows(torch, obj, x0s, single0) -> dict:
+    """Rows bit-equal to single evaluations: at nt=200, a 16-row batch of
+    two controls in alternation; at the cut depth :data:`LARGE_ROWS_NT`,
+    every count of :data:`LARGE_ROWS` over three controls in a shifting
+    order; whether one banded product at the natural width (the rows, no
+    padding) would give each row its single bits; the ms of the batched f
+    and ∇f at 16 rows (nt=200)."""
+    from mioc_tpu_torch.models import HeatObj
+
+    def check(o, X, idx, singles):
+        f, ys = o._forward_batch(X[idx])
+        df, lam = o._adjoint_batch(X[idx], ys)
+        return all(torch.equal(bits(f[r], torch), bits(singles[i][0], torch))
+                   and torch.equal(bits(ys[:, r], torch), bits(singles[i][1], torch))
+                   and torch.equal(bits(df[r], torch), bits(singles[i][2], torch))
+                   and torch.equal(bits(lam[r], torch), bits(singles[i][3], torch))
+                   for r, i in enumerate(idx))
+
+    X = torch.as_tensor(x0s, dtype=obj.dtype, device=obj.device)
+    f1, y1 = obj._forward(X[1])
+    d1, l1 = obj._adjoint(X[1], y1)
+    singles = [single0, (f1, y1, d1, l1)]
+    idx16 = [r % 2 for r in range(16)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    f16, ys16 = obj._forward_batch(X[idx16])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    df16, lam16 = obj._adjoint_batch(X[idx16], ys16)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    ok16 = all(torch.equal(bits(f16[r], torch), bits(singles[i][0], torch))
+               and torch.equal(bits(ys16[:, r], torch), bits(singles[i][1], torch))
+               and torch.equal(bits(df16[r], torch), bits(singles[i][2], torch))
+               and torch.equal(bits(lam16[r], torch), bits(singles[i][3], torch))
+               for r, i in enumerate(idx16))
+    cut = HeatObj(nt=LARGE_ROWS_NT, mesh_hierarchy=obj._mesh_hierarchy, solver="mg",
+                  cg_iters=obj.cg_iters, sparse_format="banded")
+    Xc = X[:, :LARGE_ROWS_NT]
+    sc = []
+    for s in range(3):
+        fs, ys = cut._forward(Xc[s])
+        sc.append((fs, ys, *cut._adjoint(Xc[s], ys)))
+    rows = {R: check(cut, Xc, [(r + r // 3) % 3 for r in range(R)], sc) for R in LARGE_ROWS}
+    # One fine K product at the natural width: the step-1 right-hand sides.
+    E = cut._engine
+    V = E.pad(cut.state0.expand(3, -1), 3)
+    raw = {}
+    for R in LARGE_ROWS:
+        idx = [(r + r // 3) % 3 for r in range(R)]
+        got = E.K(V[idx])
+        raw[R] = all(torch.equal(bits(got[r], torch), bits(E.K(V[i:i + 1])[0], torch))
+                     for r, i in enumerate(idx))
+    out = {"rows_bit_equal_nt200_16": ok16, "rows_bit_equal_cut": rows,
+           "cut_nt": LARGE_ROWS_NT, "natural_width_product_rows_bit_equal": raw,
+           "forward16_s": t1 - t0, "adjoint16_s": t2 - t1}
+    require(ok16, "heat_large: the 16 rows of a batch (nt=200) bit-equal to singles")
+    for R, ok in rows.items():
+        require(ok, f"heat_large: rows of a {R}-row batch (nt={LARGE_ROWS_NT}) bit-equal")
+    return out
+
+
+def large_apply_ms(torch, obj) -> dict:
+    """ms per fine-level banded application (K, 16 rows), CUDA-event median
+    of 50, beside its bound: one read of the packed operator, the windows
+    read and the rows written once."""
+    E = obj._engine
+    X = E.pad(obj.state0.expand(16, -1))
+    E.K(X)
+    ms = statistics.median(median_ms(torch, lambda: E.K(X), 50))
+    blk = obj._Kdev
+    nbytes = blk.numel() * blk.element_size() + 2 * X.numel() * X.element_size()
+    ops = 2 * blk.numel() * 16
+    bd_ms, bd_by = bound(nbytes, ops, "float64")
+    return {"K_apply_ms": ms, "bound_ms": bd_ms, "bound_by": bd_by, "bytes": nbytes,
+            "operator_bytes": blk.numel() * blk.element_size(), "ops": ops,
+            "V_cycle_ms": statistics.median(median_ms(torch, lambda: E.pc(X), 10)),
+            "cg_solve_ms": statistics.median(median_ms(torch, lambda: E.solve(X, X), 5))}
+
+
+def large_solves(torch, obj) -> dict:
+    """The host loop and the device loop (speculative and sequential) from
+    seed 0 under the heat preset capped at :data:`LARGE_MAXITER` outer
+    iterations: the JAX package's iterations, inner steps and J
+    (:data:`LARGE_REF`), the device loops each equal to the host loop's
+    iterates and to each other field for field, the launches counted."""
+    from mioc_tpu_torch.solvers.trm import TRMParameters, trm_solve
+    from mioc_tpu_torch.solvers.trm_device import DeviceTRMResult, trm_solve_device
+
+    par = TRMParameters(**HEAT_PRESET, maxiter=LARGE_MAXITER)
+    its, inner, f_evals, df_evals, J = LARGE_REF
+    sweeps = count_sweeps(obj)
+    out = {}
+    read = zero_counts(torch)
+    t0 = time.perf_counter()
+    host = trm_solve(obj, par, seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = read()
+    out["host"] = {"J": host.J, "iterations": host.iterations,
+                   "inner_steps": host.inner_steps, "f_evals": host.f_evals,
+                   "df_evals": host.df_evals, "launches": launches, "plain_calls_on_card": plain,
+                   "sweeps": {k: dict(v) for k, v in sweeps.items()}, "wall_s": wall,
+                   "timings_s": host.timings}
+    require((host.iterations, host.inner_steps, host.f_evals, host.df_evals) ==
+            (its, inner, f_evals, df_evals),
+            f"heat_large host: iterations/inner/f/df {host.iterations}/{host.inner_steps}/"
+            f"{host.f_evals}/{host.df_evals} == JAX {LARGE_REF[:4]}")
+    require(abs(host.J - J) <= 1e-12 * abs(J), f"heat_large host: J {host.J!r} == JAX {J!r}")
+    require(launches["dp_build"] == its and launches["chase"] == inner
+            and not any(v for k, v in launches.items() if k not in ("dp_build", "chase")),
+            f"heat_large host: {its} dp_build, {inner} chase, no other kernel: {launches}")
+    require(not any(plain.values()), f"heat_large host: no plain DP on the card: {plain}")
+    dev = {}
+    for spec in (True, False):
+        for v in sweeps.values():
+            v.clear()
+        read = zero_counts(torch)
+        t0 = time.perf_counter()
+        # The speculative loop in segments of one outer iteration (the JAX
+        # package's advice for minutes-long solves at this size,
+        # docs/USAGE.md:205-212): segmenting must not change a field.
+        res = trm_solve_device(obj, par, seed=0, speculative=spec,
+                               outer_chunk=1 if spec else None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, plain = read()
+        name = "device_speculative" if spec else "device_sequential"
+        dev[spec] = res
+        out[name] = {"outer_chunk": 1 if spec else None,
+                     "J": float(res.J), "iterations": int(res.iterations),
+                     "inner_steps": int(res.inner_steps), "f_evals": int(res.f_evals),
+                     "df_evals": int(res.df_evals), "launches": launches,
+                     "plain_calls_on_card": plain,
+                     "sweeps": {k: dict(v) for k, v in sweeps.items()}, "wall_s": wall}
+        wave = "chase_trials" if spec else "chase"
+        require(int(res.iterations) == its and int(res.inner_steps) == inner,
+                f"heat_large {name}: iterations/inner {int(res.iterations)}/"
+                f"{int(res.inner_steps)} == JAX {its}/{inner}")
+        require(abs(float(res.J) - J) <= 1e-12 * abs(J), f"heat_large {name}: J == JAX")
+        require(np.array_equal(res.u, host.u) and abs(float(res.J) - host.J) <= 1e-12 * abs(J)
+                and int(res.df_evals) == host.df_evals - 1,
+                f"heat_large {name}: the host loop's iterates (u, J; one ∇f fewer)")
+        require(launches["dp_build"] == its and launches[wave] == (its if spec else inner)
+                and not any(v for k, v in launches.items() if k not in ("dp_build", wave)),
+                f"heat_large {name}: {its} dp_build and the {wave} chases only: {launches}")
+        require(not any(plain.values()), f"heat_large {name}: no plain DP on the card")
+    for field in DeviceTRMResult._fields:
+        require(np.array_equal(getattr(dev[True], field), getattr(dev[False], field)),
+                f"heat_large: speculative == sequential: {field}")
+    del obj._forward_batch, obj._adjoint_batch  # count_sweeps' wrappers
+    return out
+
+
+def large_ell(torch, hier, x0, f, df) -> dict:
+    """The ELL engine at the same model: f and ∇f at ``x0`` against the
+    banded engine's (``f``, ``df``) within the measured tolerance."""
+    from mioc_tpu_torch.models import HeatObj
+
+    t0 = time.perf_counter()
+    ell = HeatObj(nt=LARGE_NT, mesh_hierarchy=hier, solver="mg", cg_iters=12,
+                  sparse_format="ell")
+    build = time.perf_counter() - t0
+    x = torch.as_tensor(x0, dtype=ell.dtype, device=ell.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fe, ys = ell._forward(x)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    dfe, _ = ell._adjoint(x, ys)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    f_err = abs(float(fe) - float(f)) / abs(float(f))
+    df_err = float((dfe - df).abs().max() / df.abs().max())
+    require(f_err <= LARGE_TOL_ELL_F and df_err <= LARGE_TOL_ELL_DF,
+            f"heat_large ELL: f/∇f within {LARGE_TOL_ELL_F}/{LARGE_TOL_ELL_DF} of banded "
+            f"({f_err}, {df_err})")
+    require(not ell._batched_sweeps_bitexact, "heat_large ELL: the wave stays off")
+    return {"build_s": build, "f": float(fe), "f_rel_err_vs_banded": f_err,
+            "df_err_of_max_vs_banded": df_err, "f_tol": LARGE_TOL_ELL_F,
+            "df_tol": LARGE_TOL_ELL_DF, "forward_s": t1 - t0, "adjoint_s": t2 - t1}
+
+
+def heat_large(torch) -> dict:
+    """Large-mesh heat on the card: construction, operators, values, rows,
+    the banded application against its bound, the three solves and the ELL
+    engine; emits one ``heat_large`` line."""
+    from mioc_tpu_torch.models.heat import HeatObj, construct_mesh_hierarchy
+    from mioc_tpu_torch.utils.init import rand_func
+
+    t0 = time.perf_counter()
+    hier = construct_mesh_hierarchy(refinements=5)
+    obj = HeatObj(nt=LARGE_NT, mesh_hierarchy=hier, solver="mg", cg_iters=12,
+                  sparse_format="banded")
+    torch.cuda.synchronize()
+    build = time.perf_counter() - t0
+    out = {"phase": "heat_large", "nt": LARGE_NT, "N": obj.Nglobal_dofs, "dtype": "float64",
+           "cg_iters": obj.cg_iters, "construction_s": build, "Kspec": list(obj._Kspec),
+           "mg_levels": len(obj._mg_static), "layouts": [list(x) for x in obj._mg_ops["layouts"]],
+           "device_memory_gb": torch.cuda.memory_allocated() / 1e9}
+    require(obj.Nglobal_dofs == LARGE_N and tuple(obj._Kspec) == LARGE_KSPEC
+            and len(obj._mg_static) == LARGE_LEVELS and obj.admissible.L == 36,
+            f"heat_large: N = 8321, banded spec {tuple(obj._Kspec)}, 5 levels, L = 36")
+    out["operators_bytes_equal_to_jax"] = large_operators(obj)
+    x0s = np.stack([rand_func(obj, seed=s) for s in range(3)])
+    out["values"], single0 = large_values(torch, obj, x0s[0])
+    out["rows"] = large_rows(torch, obj, x0s, single0)
+    out["apply"] = large_apply_ms(torch, obj)
+    out["solves"] = large_solves(torch, obj)
+    out["ell"] = large_ell(torch, hier, x0s[0], single0[0], single0[2])
+    out["peak_device_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    emit(out)
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(ROOT, "mioc_tpu_torch")):
@@ -1324,6 +1782,13 @@ def main() -> int:
                                  schedule(HEAT_PRESET["delta0"], 10.0 / HEAT_NT),
                                  torch.float64, 31)
     heat_wave = heat_wave_phase(torch, schedule(HEAT_PRESET["delta0"], 10.0 / HEAT_NT), 32)
+    large = heat_large(torch)
+    _, lnt, lB, lspec, lpreset = LARGE_SHAPE
+    large_caps = schedule(HEAT_PRESET["delta0"], 10.0 / LARGE_NT)
+    large64 = kernel_phase(torch, "heat200", lnt, lB, lspec, lpreset, torch.float64, 40)
+    large_batched = batched_phase(torch, "heat200", HEAT_STARTS, LARGE_SHAPE, large_caps,
+                                  torch.float64, 41)
+    large_wave = heat_wave_phase(torch, large_caps, 42, LARGE_SHAPE)
 
     # Where the time of each path goes: the sweeps (batches × measured ms per
     # batch), the kernels (launches × measured kernel ms), and the rest
@@ -1400,6 +1865,30 @@ def main() -> int:
               **({"timings_s": heat_host["timings"]} if name == "heat_host" else {})})
     heat_launches = {name: launches for name, (_, launches, _) in heat_paths.items()}
 
+    # Where the time of each large-mesh path goes: the sweeps (forwards and
+    # adjoints × the heat_large ms per sweep at their row count), the kernels
+    # (launches × ms per call at nt=200, L=36, B=40) and the rest.
+    large_kernel_ms = {"dp_build": large64["dp_build"]["kernel_ms"],
+                       "chase": large64["chase"]["kernel_ms"],
+                       "chase_vec": large64["chase_vec"]["kernel_ms"],
+                       "chase_trials": large_wave["chase_trials"]["kernel_ms"],
+                       **{k: large_batched[k]["kernel_ms"] for k in (
+                           "dp_build_batched", "chase_batched")}}
+    sweep_s = {("f", 1): large["values"]["forward_s"], ("df", 1): large["values"]["adjoint_s"],
+               ("f", 16): large["rows"]["forward16_s"], ("df", 16): large["rows"]["adjoint16_s"]}
+    large_launches = {}
+    for name, r in large["solves"].items():
+        large_launches[name] = r["launches"]
+        kernels_s = {k: n * large_kernel_ms[k] / 1e3 for k, n in r["launches"].items() if n}
+        # A batch of up to 16 rows is one chunk: it costs a 16-row sweep.
+        sw = {kind: sum(n * sweep_s[kind, 1 if R == 1 else 16] for R, n in r["sweeps"][kind].items())
+              for kind in ("f", "df")}
+        emit({"phase": "where_the_time_goes", "path": f"heat_large_{name}", "wall_s": r["wall_s"],
+              "sweeps_s_estimate": sw, "kernels_s_estimate": kernels_s,
+              "kernels_share": sum(kernels_s.values()) / r["wall_s"],
+              "rest_s": r["wall_s"] - sum(sw.values()) - sum(kernels_s.values()),
+              "sweep_counts": r["sweeps"], "kernel_ms_per_call": large_kernel_ms})
+
     rows = []
     for key, src, tpu, launches, path, m in (
             ("dp_build", "dp_build.cu", "mioc_tpu/ops/bellman_pallas.py:123",
@@ -1424,7 +1913,14 @@ def main() -> int:
                      "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                      "bound_by": m["bound_by"], "library_ms": None,
                      "heat_launches": {p: n[key] for p, n in heat_launches.items()},
-                     "heat_shape_ms": heat_kernel_ms[key]})
+                     "heat_shape_ms": heat_kernel_ms[key],
+                     "heat_large_launches": {p: n[key] for p, n in large_launches.items()},
+                     "heat_large_shape_ms": large_kernel_ms[key]})
+    # Last, as a profiler trace slows every later launch of the process: the
+    # kernels of a large-mesh sweep step and of one fine banded application.
+    from mioc_tpu_torch.profile_kernels import large_sweep_section
+
+    emit({"phase": "heat_large_launch_profile", **large_sweep_section()})
     emit({"phase": "run", "seconds": time.perf_counter() - t_start})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

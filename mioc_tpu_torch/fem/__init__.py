@@ -3,9 +3,10 @@ elliptic solve pipeline.
 
 Counterpart of ``mioc_tpu.fem`` (the reference's ``julia_fem``), with the
 same names.  It is numpy/scipy host code that runs at model construction;
-the device sees only the assembled operators.  The JAX package's device
-sparse engines (``sparse_device``, ``banded_device``, ``multigrid``) are
-not ported yet: ROADMAP.md queue A item 4.
+the device sees only the assembled operators.  The large-mesh engines of
+the PDE sweeps are the submodules ``sparse_device`` (ELL, CG),
+``banded_device`` (RCM-permuted block-banded operators) and ``multigrid``
+(the V-cycle), as in the JAX package.
 """
 
 from .assembly import affine_transformation, area_integrator, bdry_integrator

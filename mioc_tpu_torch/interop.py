@@ -18,6 +18,7 @@ from .models import ConvObj, DTMObj, FullerObj, HeatObj, LVMObj, VPOObj
 from .ops.levels import AdmissibleSet
 
 __all__ = ["LVM_PARAMS", "PROBLEM_PARAMS", "CONV_OPERATORS", "HEAT_OPERATORS",
+           "HEAT_SPARSE_OPERATORS", "HEAT_ENGINE",
            "admissible_from_arrays",
            "lvm_from_params", "objective_from_params", "tables_from_pallas"]
 
@@ -47,6 +48,16 @@ CONV_OPERATORS = ("K", "fvec", "_Mdiag", "_Moff")
 # state and the step); :func:`objective_from_params` builds the objective on
 # them, with no assembly of its own, when given.
 HEAT_OPERATORS = ("Sinv", "M_invF", "_Mj", "yd", "state0", "tau")
+
+# The host operators of a heat problem on the sparse cg/mg engines
+# (attributes of a ``mioc_tpu.models.HeatObj`` built with ``solver="cg"`` or
+# ``"mg"``: stiffness + Robin, mass, load, initial state — in the banded
+# engine's order there, as that package keeps it — and the step), the
+# engine's settings, and the optional ``dof_perm`` (the banded engine's
+# permutation) and ``prolongations`` (the multigrid levels', finest first:
+# ``prolongation(meshes[i - 1], meshes[i], fe)`` for i = len(meshes)−1 … 1).
+HEAT_SPARSE_OPERATORS = ("A", "M", "F", "state0", "tau")
+HEAT_ENGINE = ("solver_mode", "sparse_format", "cg_iters")
 
 
 def admissible_from_arrays(V, indices, levels) -> AdmissibleSet:
@@ -106,7 +117,10 @@ def objective_from_params(name: str, params: Mapping, *, device=None, dtype=None
     or numpy arrays).  For ``"convolution"``, any of :data:`CONV_OPERATORS`
     in ``params`` replace the port's own operators (all four, or none); for
     ``"heat"``, :data:`HEAT_OPERATORS` (all six, or none) take the place of
-    the port's own mesh and assembly."""
+    the port's own mesh and assembly; with ``solver_mode`` ``"cg"`` or
+    ``"mg"`` in ``params``, :data:`HEAT_SPARSE_OPERATORS` and
+    :data:`HEAT_ENGINE` (plus ``dof_perm`` and ``prolongations`` where
+    given) build the port's sparse engine on them instead."""
     if name not in PROBLEM_PARAMS:
         raise KeyError(f"no parameter set for problem {name!r}; "
                        f"known: {sorted(PROBLEM_PARAMS)}")
@@ -127,6 +141,8 @@ def objective_from_params(name: str, params: Mapping, *, device=None, dtype=None
                          terminal_frac=float(p["terminal_frac"]), **kw)
     if name == "heat":
         scalars = {k: float(p[k]) for k in PROBLEM_PARAMS["heat"][1:]}
+        if str(params.get("solver_mode", "dense")) in ("cg", "mg"):
+            return _sparse_heat(nt, params, scalars, kw)
         ops = _operators(params, HEAT_OPERATORS)
         if ops is None:
             return HeatObj(nt, **scalars, **kw)
@@ -138,6 +154,24 @@ def objective_from_params(name: str, params: Mapping, *, device=None, dtype=None
     if ops is not None:
         obj.set_operators(*ops)
     return obj
+
+
+def _sparse_heat(nt, params, scalars, kw):
+    """A heat objective on the port's cg/mg engine from another package's
+    host operators (:data:`HEAT_SPARSE_OPERATORS`, :data:`HEAT_ENGINE`)."""
+    missing = [k for k in HEAT_SPARSE_OPERATORS + HEAT_ENGINE if k not in params]
+    if missing:
+        raise KeyError(f"missing sparse heat operators: {missing}")
+    A, M, F, state0, tau = (params[k] for k in HEAT_SPARSE_OPERATORS)
+    perm = params.get("dof_perm")
+    state0 = np.asarray(state0)
+    if perm is not None:  # held in the banded engine's order: back to assembly order
+        state0 = state0[np.argsort(np.asarray(perm))]
+    return HeatObj.from_sparse_operators(
+        nt, A=A, M=M, F=np.asarray(F), state0=state0, tau=float(tau),
+        solver=str(params["solver_mode"]), cg_iters=int(params["cg_iters"]),
+        sparse_format=str(params["sparse_format"]), dof_perm=perm,
+        prolongations=params.get("prolongations"), **scalars, **kw)
 
 
 def _operators(params: Mapping, names):

@@ -14,11 +14,15 @@ control set ``{0..5}²`` (L = 36, the DP stress case for L).
 The FEM pipeline runs on the host at construction, with the JAX package's
 numpy/scipy code (:mod:`mioc_tpu_torch.fem`): squareg mesh refined 3× (N =
 545 P2 dofs with the native triangulator), P2 Lagrange, stiffness+Robin /
-mass / load assembly, then the dense sweep operators (``S⁻¹``, ``M⁻¹F``),
-which move to the objective's device and dtype once, with ``M`` and ``y_d``
-for the cost.  The cost's products run in fixed-shape row chunks
-(:mod:`mioc_tpu_torch.objectives.pde`), so every row of a batched
-evaluation has the single evaluation's bits.
+mass / load assembly, then the sweep operators, which move to the
+objective's device and dtype once, with ``M`` and ``y_d`` for the cost:
+the dense ``S⁻¹`` and ``M⁻¹F`` by default, or with ``solver="cg"``/``"mg"``
+the sparse large-mesh engines (``sparse_format="ell"`` or ``"banded"``;
+``"mg"`` takes the refinement chain ``mesh_hierarchy``), whose tracking cost
+applies the engine's sparse ``M``: no N×N array is built there.  The cost's
+products run in fixed-shape row chunks (:mod:`mioc_tpu_torch.objectives.
+pde`), so every row of a batched evaluation has the single evaluation's
+bits.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ from ..fem import (
     quadrature_unit_triangle_area,
     refine_all_cells,
 )
-from ..objectives.pde import _SPARSE, COST_ROWS, PDEObjective
+from ..objectives.pde import COST_ROWS, PDEObjective
 from ..ops.levels import product_levels
 from ..ops.rows import chunked
 from ..ops.tv import fold_sum
@@ -63,13 +67,11 @@ class HeatObj(PDEObjective):
     """The heat problem on ``nt`` implicit-Euler steps of ``[0, 10]``.
 
     The JAX package's signature, plus ``device`` (``None`` means ``"cuda"``)
-    and ``dtype`` (``None`` means float64).  ``solver="cg"``/``"mg"`` (and
-    ``sparse_format``) select the sparse large-mesh engines, which are not
-    ported yet and raise ``NotImplementedError``."""
-
-    # Dense mode: fixed-shape products and fold sums, so every row of a batch
-    # has the single evaluation's bits and the speculative wave is exact.
-    _batched_sweeps_bitexact = True
+    and ``dtype`` (``None`` means float64).  ``solver="cg"``/``"mg"`` select
+    the sparse large-mesh engines with ``cg_iters`` CG iterations per step
+    and ``sparse_format`` ``"ell"`` or ``"banded"``; ``"mg"`` runs over
+    ``mesh_hierarchy`` (coarse → fine; default
+    :func:`construct_mesh_hierarchy`)."""
 
     def __init__(
         self,
@@ -97,10 +99,15 @@ class HeatObj(PDEObjective):
         device=None,
         dtype=None,
     ):
-        if solver in ("cg", "mg"):
-            raise NotImplementedError(f"solver={solver!r} is not ported yet: {_SPARSE}")
         self._init_problem(nt, gamma=gamma, kappa=kappa, Tout=Tout, temp0=temp0,
                            tempT=tempT, device=device, dtype=dtype)
+        if solver == "mg" and mesh_hierarchy is None:
+            if mesh is not None:
+                raise ValueError(
+                    "solver='mg' needs the refinement chain: pass "
+                    "mesh_hierarchy=[coarse, …, fine] instead of mesh"
+                )
+            mesh_hierarchy = construct_mesh_hierarchy()
         if mesh_hierarchy is not None:
             mesh = mesh_hierarchy[-1]
         self._mesh_hierarchy = mesh_hierarchy
@@ -137,8 +144,10 @@ class HeatObj(PDEObjective):
         state0 = spla.spsolve(M.tocsc(), Y0)
 
         # Target temperature distribution (assemble_yd, example_heat.jl:130-132)
-        # and the dense mass matrix of the tracking cost.
-        self._set_cost(M.toarray(), np.full((N,), self.tempT))
+        # and, in dense mode, the dense mass matrix of the tracking cost (the
+        # sparse modes apply the engine's M: yd is uniform, so the banded
+        # engine's permuted cost is the same).
+        self._set_cost(M.toarray() if solver == "dense" else None, np.full((N,), self.tempT))
         self.setup_operators(
             M, A, F, state0, mode=solver, cg_iters=cg_iters,
             mg_meshes=self._mesh_hierarchy, mg_fe=self.fe, fmt=sparse_format,
@@ -159,8 +168,10 @@ class HeatObj(PDEObjective):
             return torch.as_tensor(np.array(a, dtype=np.float64),
                                    device=self.device).to(self.dtype)
 
-        self._Mj = dev(M_dense)
-        self._MjT = self._Mj.T.contiguous()
+        self._Mj = self._MjT = None
+        if M_dense is not None:
+            self._Mj = dev(M_dense)
+            self._MjT = self._Mj.T.contiguous()
         self.yd = dev(yd)
 
     @classmethod
@@ -184,23 +195,63 @@ class HeatObj(PDEObjective):
         obj.install_operators(Sinv, M_invF, state0)
         return obj
 
+    @classmethod
+    def from_sparse_operators(cls, nt, *, A, M, F, state0, tau=None, solver="mg",
+                              cg_iters=40, sparse_format="ell", dof_perm=None,
+                              prolongations=None, gamma=10.0, kappa=0.12, Tout=0.0,
+                              temp0=10.0, tempT=20.0, device=None, dtype=None):
+        """A heat objective on the cg/mg engines from given host operators
+        (scipy or numpy: stiffness + Robin ``A``, mass ``M``, load ``F (N,
+        2)``, ``state0``; for ``"mg"`` the level ``prolongations``, finest
+        first; for ``"banded"`` optionally ``dof_perm``), with no mesh and
+        no assembly of its own; ``tau``, when given, replaces ``10/nt``."""
+        obj = cls.__new__(cls)
+        obj._init_problem(nt, gamma=gamma, kappa=kappa, Tout=Tout, temp0=temp0,
+                          tempT=tempT, device=device, dtype=dtype)
+        if tau is not None:
+            obj.tau = float(tau)
+        obj.mesh = obj.fe = obj._mesh_hierarchy = None
+        obj._set_cost(None, np.full((F.shape[0],), obj.tempT))
+        obj.setup_operators(M, A, np.asarray(F), np.asarray(state0), mode=solver,
+                            cg_iters=cg_iters, fmt=sparse_format, dof_perm=dof_perm,
+                            mg_prolongations=prolongations)
+        return obj
+
+    @property
+    def _batched_sweeps_bitexact(self):
+        # Every row of a batch has the single evaluation's bits in dense mode
+        # and on the banded engine (fixed-width products, row sums of one
+        # shape, fold sums), so the speculative wave is exact there.  The
+        # ELL engine keeps the wave off, as the JAX package does
+        # (mioc_tpu/models/heat.py:163-187).
+        return self.solver_mode == "dense" or self.sparse_format == "banded"
+
+    def _mass_apply(self, v):
+        """``M v`` for one vector (the dense ``M`` or the engine's)."""
+        if self._engine is None:
+            return self._Mj @ v
+        return self._engine.mass_rows(v[None])[0]
+
     # Costs (example_heat.jl:135-161).  The sweeps call the row forms; the
     # scalar hooks are the JAX package's, for users and tests.
     def G(self, y, u, i):
         v = y - self.yd
-        return 0.5 * v @ (self._Mj @ v)
+        return 0.5 * v @ self._mass_apply(v)
 
     def G_t(self, u, i):
         return self.gamma * u.sum()
 
     def Gy(self, y, u, i):
-        return self._Mj @ (y - self.yd)
+        return self._mass_apply(y - self.yd)
 
     def Gu(self, u, i):
         return self.gamma * torch.ones(self.nx, dtype=self.dtype, device=self.device)
 
     def _mass_rows(self, v):
-        """``M v`` for every row of ``v (n, N)``, in chunks of COST_ROWS."""
+        """``M v`` for every row of ``v (n, N)``: chunks of COST_ROWS rows
+        of the dense product, or the engine's sparse M."""
+        if self._engine is not None:
+            return self._engine.mass_rows(v)
         return chunked(lambda rows: rows @ self._MjT, v, COST_ROWS)
 
     def _G_rows(self, ys, uu, t_idx):

@@ -38,8 +38,21 @@ A single evaluation is a batch of one row.  (The JAX package reaches the same
 end on the TPU by evaluating a single forward as a duplicated 2-row batch,
 ``mioc_tpu/objectives/pde.py:506-509``.)
 
-``mode="cg"``/``"mg"`` (the sparse large-mesh engines) and ``fmt`` are not
-ported yet and raise ``NotImplementedError`` (ROADMAP.md queue A item 4).
+Sparse modes.  ``mode="cg"``/``"mg"`` solve ``K y_k = M y_{k−1} + τ F
+u_{k−1}`` (``K = M + τA``) per step with ``cg_iters`` preconditioned CG
+iterations warm-started from the previous step (Jacobi for ``"cg"``, a
+multigrid V-cycle for ``"mg"``), and the adjoint ``λ_j = M K⁻¹ (λ_{j+1} +
+drive)`` the same way: the large-mesh path, with ``K`` and ``M`` in ELL
+(``fmt="ell"``) or RCM-permuted block-banded (``fmt="banded"``) form
+(:mod:`mioc_tpu_torch.fem.sparse_device`, :mod:`~mioc_tpu_torch.fem.
+banded_device`, :mod:`~mioc_tpu_torch.fem.multigrid`).  Each step runs on
+chunks of exactly :data:`~mioc_tpu_torch.ops.rows.ROWS` rows in a zero-
+padded buffer (pad rows are zero, fixed points of the guarded CG), every
+product at that width and every CG reduction a row sum of that shape, so
+each row again has the bits of its single evaluation.  With ``"banded"``
+the sweeps run in the permuted dof order: ``state0``, ``F``, ``M⁻¹F``, the
+states and the adjoint are permuted, and :meth:`PDEObjective.unpermute_dofs`
+maps back (``dof_perm`` holds the permutation).
 """
 
 from __future__ import annotations
@@ -49,6 +62,8 @@ import torch
 from torch.func import grad, vmap
 
 from .._device import resolve_device, resolve_dtype
+from ..fem import banded_device
+from ..fem.sparse_device import cg_solve_rows
 from ..ops.rows import ROWS, chunked
 from ..ops.tv import fold_sum
 from .base import LazyObjective
@@ -60,9 +75,6 @@ __all__ = ["PDEObjective", "COST_ROWS"]
 # fixed chunk keeps their launches few.
 COST_ROWS = 512
 
-_SPARSE = "ROADMAP.md queue A item 4 (fem/sparse_device.py, banded_device.py, multigrid.py)"
-
-
 def _numpy_dtype(dtype: torch.dtype):
     return np.float64 if dtype == torch.float64 else np.float32
 
@@ -73,6 +85,40 @@ def _pad_rows(t):
     R = t.shape[1]
     pad = -R % ROWS
     return torch.cat([t, t.new_zeros((t.shape[0], pad, t.shape[2]))], dim=1) if pad else t
+
+
+class _SparseEngine:
+    """The cg/mg sweep operators on zero-padded row buffers ``(ROWS,
+    layout.total)`` (:class:`~mioc_tpu_torch.fem.banded_device.Layout`; the
+    identity layout for ELL): ``K``, ``M`` and the preconditioner ``pc`` (a
+    vector or a callable) map such buffers to such buffers, ``F (nx,
+    layout.total)`` holds the load columns."""
+
+    def __init__(self, layout, K, M, pc, F, iters):
+        self.layout, self.K, self.M, self.pc, self.F = layout, K, M, pc, F
+        self.iters = int(iters)
+
+    def pad(self, rows, width: int = ROWS):
+        """``rows (..., n ≤ width, N)`` in a zero ``(..., width, total)`` buffer."""
+        return banded_device.pad(rows, self.layout, width)
+
+    def unpad(self, X):
+        return banded_device.unpad(X, self.layout)
+
+    def solve(self, b, x0):
+        """``cg_iters`` preconditioned CG iterations on ``K x = b`` from ``x0``."""
+        return cg_solve_rows(self.K, b, x0, self.pc, self.iters)
+
+    def drive(self, u):
+        """``F u`` for the rows of ``u (ROWS, nx)``, unrolled over nx."""
+        acc = u[:, 0:1] * self.F[0]
+        for j in range(1, self.F.shape[0]):
+            acc = torch.addcmul(acc, u[:, j:j + 1], self.F[j])
+        return acc
+
+    def mass_rows(self, v):
+        """``M v`` for every row of ``v (n, N)``, in chunks of ROWS rows."""
+        return chunked(lambda rows: self.unpad(self.M(self.pad(rows))), v, ROWS)
 
 
 class PDEObjective(LazyObjective):
@@ -103,6 +149,13 @@ class PDEObjective(LazyObjective):
     # the JAX package measured the trials chase faster at heat nt=500.
     _wave_chase_default = "trials"
 
+    # Dense mode until setup_operators installs a sparse engine.
+    solver_mode = "dense"
+    sparse_format = "ell"
+    dof_perm = None
+    _dof_iperm = None
+    _engine = None
+
     def __init__(self, *, T0, T1, nt, nu=0, V=None, admissible=None,
                  device=None, dtype=None):
         super().__init__()
@@ -121,29 +174,37 @@ class PDEObjective(LazyObjective):
     # -- operator precompute ---------------------------------------------------
     def setup_operators(self, M, A, F, state0, *, mode: str = "dense",
                         cg_iters: int = 40, mg_meshes=None, mg_fe=None,
-                        fmt: str = "ell", matmul_precision: str = "highest"):
-        """Precompute the dense sweep operators ``S⁻¹`` and ``M⁻¹F`` on the
-        host (``mioc_tpu/objectives/pde.py:150-172``'s calls) and move them to
-        the objective's device and dtype.
+                        fmt: str = "ell", matmul_precision: str = "highest",
+                        dof_perm=None, mg_prolongations=None):
+        """Precompute the sweep operators on the host
+        (``mioc_tpu/objectives/pde.py:100-220``'s calls) and move them to the
+        objective's device and dtype.
+
+        ``mode="dense"``: the dense inverse ``S⁻¹ = (I + τM⁻¹A)⁻¹`` and
+        ``M⁻¹F``.  ``mode="cg"``/``"mg"``: ``K = M + τA`` and ``M`` in the
+        sparse format ``fmt`` (``"ell"`` or ``"banded"``), with
+        ``cg_iters`` CG iterations per step; ``"mg"`` preconditions with a
+        V-cycle over ``mg_meshes`` (coarse → fine, the finest the assembly
+        mesh) with FE ``mg_fe``, or over ``mg_prolongations`` (finest
+        first, :func:`~mioc_tpu_torch.fem.multigrid.mesh_prolongations`).
+        ``dof_perm``, with ``"banded"``, replaces the RCM permutation the
+        engine would compute.
 
         ``matmul_precision`` is accepted as the JAX package accepts it
         (``"highest"``, ``"float32"``; there it sets the TPU matrix unit's
         pass count).  Here every product is a full product in the
         objective's dtype whatever its value, as long as the process keeps
-        PyTorch's default of TF32 off (the port never turns it on).
-        ``mode="cg"``/``"mg"`` and a sparse ``fmt`` other than the default
-        are not ported yet."""
+        PyTorch's default of TF32 off (the port never turns it on)."""
         import scipy.sparse as sp
         import scipy.sparse.linalg as spla
 
         self.matmul_precision = str(matmul_precision)
         if mode not in ("dense", "cg", "mg"):
             raise ValueError(f"unknown operator mode {mode!r}")
-        if mode != "dense":
-            raise NotImplementedError(f"mode={mode!r} is not ported yet: {_SPARSE}")
-        if fmt != "ell":
-            raise NotImplementedError(f"fmt={fmt!r} (a sparse engine) is not ported yet: "
-                                      f"{_SPARSE}")
+        if mode == "mg" and mg_prolongations is None and (mg_meshes is None or mg_fe is None):
+            raise ValueError("mode='mg' needs mg_meshes (coarse→fine) and mg_fe")
+        if mode != "dense" and fmt not in ("ell", "banded"):
+            raise ValueError(f"unknown sparse format {fmt!r}")
         N = F.shape[0]
         self.Nglobal_dofs = N
         self.solver_mode = mode
@@ -156,11 +217,99 @@ class PDEObjective(LazyObjective):
         self.M = Mc
         self.A = A
         self.F = np.asarray(F)
-        A_d = A.toarray() if sp.issparse(A) else np.asarray(A)
-        M_invA = np.column_stack([solve_M(A_d[:, j]) for j in range(N)])
-        S = np.eye(N) + self.tau * M_invA
-        self.M_invA = np.asarray(M_invA, dtype=_numpy_dtype(self.dtype))
-        self.install_operators(np.linalg.inv(S), M_invF, state0)
+        if mode == "dense":
+            A_d = A.toarray() if sp.issparse(A) else np.asarray(A)
+            M_invA = np.column_stack([solve_M(A_d[:, j]) for j in range(N)])
+            S = np.eye(N) + self.tau * M_invA
+            self.M_invA = np.asarray(M_invA, dtype=_numpy_dtype(self.dtype))
+            self.install_operators(np.linalg.inv(S), M_invF, state0)
+            return
+        self.sparse_format = fmt
+        K = (Mc + self.tau * sp.csc_matrix(A)).tocsr()
+        if mode == "mg" and mg_prolongations is None:
+            from ..fem.multigrid import mesh_prolongations
+
+            mg_prolongations = mesh_prolongations(mg_meshes, mg_fe)
+        self._install_sparse(K, sp.csr_matrix(Mc), self.F, M_invF, np.asarray(state0),
+                             mg_prolongations if mode == "mg" else None, dof_perm)
+
+    def _install_sparse(self, K, M, F, M_invF, state0, prolongations, perm):
+        """The cg/mg engine on ``K``, ``M`` (scipy, assembly order), ``F``,
+        ``M⁻¹F``, ``state0`` and, for ``"mg"``, the level prolongations."""
+        from ..fem import banded_device as bd
+        from ..fem import multigrid as mg
+        from ..fem.sparse_device import ell_matvec, to_ell
+
+        dev, dt = self.device, self.dtype
+        N = K.shape[0]
+
+        def tensor(a):
+            return torch.as_tensor(np.array(a, dtype=np.float64), device=dev).to(dt)
+
+        if self.sparse_format == "banded":
+            if perm is None:
+                perm = bd.rcm_permutation(K)
+            self.dof_perm = np.asarray(perm)
+            self._dof_iperm = np.argsort(self.dof_perm)
+            Kp, Mp = K[perm][:, perm], M[perm][:, perm]
+            self._Kspec, Kblk = bd.pack_banded(Kp)
+            self._Mspec, Mblk = bd.pack_banded(Mp)
+            self._Kblk_host, self._Mblk_host = Kblk, Mblk
+            dinv = 1.0 / Kp.diagonal()
+            F, M_invF, state0 = F[perm], M_invF[perm], state0[perm]
+            specs = (self._Kspec, self._Mspec)
+            if prolongations is not None:
+                self._mg_static, self._mg_host = mg.build_mg_banded(
+                    None, None, K, perm, prolongations=prolongations)
+                self._mg_ops = mg.mg_banded_device(self._mg_static, self._mg_host, device=dev,
+                                                   dtype=dt, fine_readers=specs,
+                                                   fine_writers=specs)
+                layout = self._mg_ops["layouts"][0]
+            else:
+                layout = bd.layout_for(N, specs, specs)
+            Kdev = bd.device_blocks(self._Kspec, Kblk, device=dev, dtype=dt)
+            Mdev = bd.device_blocks(self._Mspec, Mblk, device=dev, dtype=dt)
+            Kspec, Mspec = self._Kspec, self._Mspec
+            apply_K = lambda X: bd.banded_apply(Kspec, Kdev, X, layout, layout)  # noqa: E731
+            apply_M = lambda X: bd.banded_apply(Mspec, Mdev, X, layout, layout)  # noqa: E731
+            self._Kdev, self._Mdev = Kdev, Mdev
+        else:
+            self.dof_perm = self._dof_iperm = None
+            layout = bd.Layout(N, 0, N)
+            Kv, Kc = to_ell(K)
+            Mv, Mc = to_ell(M)
+            self._Kv, self._Kc = tensor(Kv), torch.as_tensor(Kc.astype(np.int64), device=dev)
+            self._Mv, self._Mc = tensor(Mv), torch.as_tensor(Mc.astype(np.int64), device=dev)
+            dinv = 1.0 / K.diagonal()
+            apply_K = lambda X: ell_matvec(self._Kv, self._Kc, X)  # noqa: E731
+            apply_M = lambda X: ell_matvec(self._Mv, self._Mc, X)  # noqa: E731
+            if prolongations is not None:
+                self._mg_host = mg.build_mg_ops(None, None, K, prolongations=prolongations)
+                self._mg_ops = mg.mg_device(self._mg_host, device=dev, dtype=dt)
+
+        def padded(v):
+            out = np.zeros(v.shape[:-1] + (layout.total,))
+            out[..., layout.front:layout.front + N] = v
+            return tensor(out)
+
+        self._dinv = tensor(dinv)
+        if self.solver_mode == "mg":
+            if self.sparse_format == "banded":
+                levels, coarse = mg.banded_levels(self._mg_static, self._mg_ops)
+            else:
+                levels = mg.ell_levels(self._mg_ops)
+                ciT = self._mg_ops["coarse_inv"].T.contiguous()
+                coarse = lambda r: r @ ciT  # noqa: E731
+            wdinv = [0.6 * L.dinv for L in levels]  # the JAX package's ω = 0.6, ν = 2
+            pc = lambda R: mg.vcycle(levels, coarse, R, wdinv=wdinv)  # noqa: E731
+        else:
+            pc = padded(dinv)
+        self._engine = _SparseEngine(layout, apply_K, apply_M, pc, padded(np.asarray(F).T),
+                                     self.cg_iters)
+        self.M_invF = tensor(M_invF)
+        self._MFT = self.M_invF.T.contiguous()
+        self.state0 = tensor(state0)
+        self._build()
 
     def install_operators(self, Sinv, M_invF, state0):
         """Put the sweep operators ``Sinv (N, N)``, ``M_invF (N, nx)`` and
@@ -170,6 +319,7 @@ class PDEObjective(LazyObjective):
             return torch.as_tensor(np.array(a, dtype=np.float64),
                                    device=self.device).to(self.dtype)
 
+        self._engine = None
         self.Sinv = dev(Sinv)
         self.M_invF = dev(M_invF)
         self.state0 = dev(state0)
@@ -221,9 +371,14 @@ class PDEObjective(LazyObjective):
         return bool(getattr(self, "_batched_sweeps_bitexact", False))
 
     def unpermute_dofs(self, arr):
-        """Map a dof-indexed array from the banded engine's order back to the
-        assembly order: the identity (the banded engine is not ported)."""
-        return arr
+        """Map a dof-indexed array (last axis; numpy or a tensor) from the
+        banded engine's RCM order back to the assembly order (the identity
+        in the other modes)."""
+        if self.dof_perm is None:
+            return arr
+        if isinstance(arr, torch.Tensor):
+            return arr[..., torch.as_tensor(self._dof_iperm, device=arr.device)]
+        return np.asarray(arr)[..., self._dof_iperm]
 
     # -- user cost hooks -------------------------------------------------------
     def G(self, y, u, i):
@@ -278,14 +433,54 @@ class PDEObjective(LazyObjective):
                 torch.matmul(a[r0:r0 + ROWS], op, out=out[dst, r0:r0 + ROWS])
         return out
 
+    def _cg_forward(self, xs_tm):
+        """The sparse state sweep ``xs_tm (nt, R, nx) → ys (nt+1, R, N)``:
+        per chunk of ROWS rows (pad rows zero) and step, ``y ← K⁻¹(M y + τ F
+        u)`` by CG warm-started at ``y`` (``mioc_tpu/objectives/pde.py:
+        626-629``)."""
+        E, nt, N = self._engine, self.nt, self.Nglobal_dofs
+        R = xs_tm.shape[1]
+        ys = xs_tm.new_empty((nt + 1, R, N))
+        ys[0] = self.state0
+        for s0 in range(0, R, ROWS):
+            u = xs_tm[:, s0:s0 + ROWS]
+            n = u.shape[1]
+            u = torch.nn.functional.pad(u, (0, 0, 0, ROWS - n))
+            y = E.pad(self.state0.expand(n, N))
+            for k in range(nt):
+                y = E.solve(E.M(y) + self.tau * E.drive(u[k]), y)
+                ys[k + 1, s0:s0 + n] = E.unpad(y)[:n]
+        return ys
+
+    def _cg_adjoint(self, drive):
+        """The sparse adjoint sweep ``drive (nt, R, N) → lam (nt, R, N)``: per
+        chunk of ROWS rows and step j = nt−1 … 0, ``t ← K⁻¹(λ + drive_j)`` by
+        CG warm-started at the previous ``t``, then ``λ ← M t`` (``S⁻ᵀ v = M
+        K⁻¹ v``, ``mioc_tpu/objectives/pde.py:729-742``)."""
+        E, nt = self._engine, self.nt
+        R = drive.shape[1]
+        lam_tm = torch.empty_like(drive)
+        for s0 in range(0, R, ROWS):
+            d = E.pad(drive[:, s0:s0 + ROWS])                       # (nt, ROWS, total)
+            n = min(ROWS, R - s0)
+            lam = t = torch.zeros_like(d[0])
+            for j in range(nt - 1, -1, -1):
+                t = E.solve(lam + d[j], t)
+                lam = E.M(t)
+                lam_tm[j, s0:s0 + n] = E.unpad(lam)[:n]
+        return lam_tm
+
     def _forward_batch(self, xs):
         """``xs (R, nt, nx) → (f (R,), ys (nt+1, R, N))``, ``ys[k] = y_k``:
         time-major with the rows on axis 1, the JAX package's layout."""
         nt, N = self.nt, self.Nglobal_dofs
         R = xs.shape[0]
         xs_tm = xs.transpose(0, 1)                                  # (nt, R, nx)
-        drive = _pad_rows(self._drive(xs_tm))
-        ys = self._sweep(self.state0, drive, self._SinvT, False)[:, :R]  # (nt+1, R, N)
+        if self._engine is None:
+            drive = _pad_rows(self._drive(xs_tm))
+            ys = self._sweep(self.state0, drive, self._SinvT, False)[:, :R]  # (nt+1, R, N)
+        else:
+            ys = self._cg_forward(xs_tm)
         uu = xs_tm[self._u_idx]                                     # (nt+1, R, nx)
         t_idx = torch.arange(nt + 1, device=xs.device).repeat_interleave(R)
         g = self._G_rows(ys.reshape((nt + 1) * R, N), uu.reshape((nt + 1) * R, -1), t_idx)
@@ -303,8 +498,11 @@ class PDEObjective(LazyObjective):
         gy = self._Gy_rows(src.reshape(nt * R, N),
                            xs_tm[self._adj_u].reshape(nt * R, -1),
                            k_src.repeat_interleave(R)).view(nt, R, N)
-        drive = _pad_rows((self.tau * self._adj_w)[:, None, None] * gy)
-        lam_tm = self._sweep(0.0, drive, self.Sinv, True)[:nt, :R]  # (nt, R, N)
+        drive = (self.tau * self._adj_w)[:, None, None] * gy
+        if self._engine is None:
+            lam_tm = self._sweep(0.0, _pad_rows(drive), self.Sinv, True)[:nt, :R]  # (nt, R, N)
+        else:
+            lam_tm = self._cg_adjoint(drive)
         lam = lam_tm.transpose(0, 1)                                # (R, nt, N)
         df = chunked(lambda rows: rows @ self.M_invF,
                      lam_tm.reshape(nt * R, N), COST_ROWS).view(nt, R, -1)

@@ -43,7 +43,10 @@ L=36, B=100, float64; :func:`heat_solve_section`) it takes the device ms of
 halving caps) at S=1, and of ``dp_build_batched`` (under the cluster size its
 plan takes, and at C = 1), ``chase_batched`` and ``chase_trials`` (K=8) at
 S=8, each equal to its plain version.  ``--heat-only`` runs just that section
-(about a minute).
+(about a minute).  ``--heat-large`` runs it at the large-mesh heat solve's
+shape instead (``HeatObj(nt=200)`` on 8321 dofs: nt=200, L=36, B=40), then
+:func:`large_sweep_section`: the kernels and device µs of a step of that
+model's sparse sweeps, by kernel.
 
 It also samples the SM clock (``nvidia-smi --query-gpu=clocks.sm``) while
 ``dp_build`` runs back to back for a second at each shape: a kernel that
@@ -64,6 +67,7 @@ import json
 import math
 import shutil
 import subprocess
+import time
 
 import numpy as np
 import torch
@@ -639,29 +643,33 @@ def vec_section(U, phi0, btilde, B) -> list:
 
 HEAT_SOLVE = ("heat500", 500, 100, ("product", [list(range(6))] * 2), (2, 1e-3, 10.0 / 500))
 HEAT_CAPS = [100, 50, 25, 12, 6, 3, 1, 0]  # ⌊δ/Δt⌋, δ = 2, 1, …, at Δt = 0.02
+# The large-mesh heat solve (HeatObj(nt=200, 8321 dofs, mg-CG 12, banded)).
+HEAT_LARGE = ("heat200", 200, 40, ("product", [list(range(6))] * 2), (2, 1e-3, 10.0 / 200))
+HEAT_LARGE_CAPS = [40, 20, 10, 5, 2, 1, 0]  # ⌊δ/Δt⌋ at Δt = 0.05
 
 
-def heat_solve_section() -> dict:
-    """Device ms of the kernels at the heat solve's shape, S=1 and S=8,
-    float64, each equal to its plain version first."""
+def heat_solve_section(shape=HEAT_SOLVE, HEAT_CAPS=HEAT_CAPS) -> dict:
+    """Device ms of the kernels at a heat solve's shape (``shape``, its
+    halving caps ``HEAT_CAPS``), S=1 and S=8, float64, each equal to its
+    plain version first."""
     from .ops import backtrack_cuda as kc
     from .ops import bellman as tb
     from .ops import bellman_cuda as bc
 
-    name, nt, B, spec, preset = HEAT_SOLVE
+    name, nt, B, spec, preset = shape
     out = {"shape": name, "nt": nt, "B": B, "dtype": "float64", "caps": HEAT_CAPS}
     stage, btilde, jump, smax = _tables(nt, B, spec, preset, torch.float64, seed=40)
     L = stage.shape[1]
     U, phi0 = bc.dp_build(stage, btilde, jump, B, smax)
     U_p, phi_p = tb.build_tables_plain(stage, btilde, jump, B, smax)
     if not (torch.equal(U, U_p) and torch.equal(phi0, phi_p)):
-        raise RuntimeError("heat500: dp_build differs from the plain build")
+        raise RuntimeError(f"{name}: dp_build differs from the plain build")
     one = (U[None], phi0[None], btilde[None])
     caps1 = torch.tensor([HEAT_CAPS], dtype=torch.int32, device="cuda")
     if not torch.equal(kc.chase(U, phi0, btilde, B), tb.backtrack_plain(U, phi0, btilde, B)) \
             or not torch.equal(kc.chase_trials(*one, caps1),
                                tb.backtrack_trials_plain(*one, caps1.cpu())):
-        raise RuntimeError("heat500: a chase differs from the plain walk")
+        raise RuntimeError(f"{name}: a chase differs from the plain walk")
     out["S1"] = {
         "L": L, "build_plan": bc.build_plan(nt, L, B, 8)._asdict(),
         "dp_build_ms": device_ms(lambda: bc.dp_build(stage, btilde, jump, B, smax),
@@ -680,7 +688,7 @@ def heat_solve_section() -> dict:
     for C in sorted({1, taken.C}):
         Uc, phic = bc.dp_build_batched(stage, btilde, jump, B, smax, clusters=C)
         if not (torch.equal(Uc, U_p) and torch.equal(phic, phi_p)):
-            raise RuntimeError(f"heat500 S=8: dp_build_batched at C={C} differs")
+            raise RuntimeError(f"{name} S=8: dp_build_batched at C={C} differs")
         builds[C] = device_ms(lambda C=C: bc.dp_build_batched(stage, btilde, jump, B, smax,
                                                               clusters=C), "dp_build_kernel")
     capsS = torch.tensor([HEAT_CAPS[s % len(HEAT_CAPS)] for s in range(S)],
@@ -690,13 +698,50 @@ def heat_solve_section() -> dict:
                        tb.backtrack_batched_plain(U_p, phi_p, btilde, capsS.cpu())) \
             or not torch.equal(kc.chase_trials(U_p, phi_p, btilde, trials),
                                tb.backtrack_trials_plain(U_p, phi_p, btilde, trials.cpu())):
-        raise RuntimeError("heat500 S=8: a batched chase differs from the plain walk")
+        raise RuntimeError(f"{name} S=8: a batched chase differs from the plain walk")
     out["S8"] = {
         "taken_plan": taken._asdict(), "dp_build_batched_ms_by_C": builds,
         "chase_batched_ms": device_ms(lambda: kc.chase_batched(U_p, phi_p, btilde, capsS),
                                       "chunked_chase_kernel"),
         "chase_trials_ms": device_ms(lambda: kc.chase_trials(U_p, phi_p, btilde, trials),
                                      "chunked_chase_kernel")}
+    return out
+
+
+def large_sweep_section() -> dict:
+    """Where a step of the large-mesh heat sweep goes on the device
+    (``HeatObj(nt=2, 8321 dofs, mg-CG 12, banded)``, one row): kernels and
+    device µs per forward and adjoint step, by kernel name (the twelve with
+    the most device time), the host µs per step, and the kernels of one
+    fine K application at 16 rows (one ``bmm`` and the zeroed output)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from .models.heat import HeatObj, construct_mesh_hierarchy
+
+    obj = HeatObj(nt=2, mesh_hierarchy=construct_mesh_hierarchy(refinements=5), solver="mg",
+                  cg_iters=12, sparse_format="banded")
+    x = torch.zeros((2, 2), dtype=obj.dtype, device=obj.device)
+    _, ys = obj._forward(x)
+    X = obj._engine.pad(obj.state0.expand(16, -1))
+    out = {"N": obj.Nglobal_dofs, "cg_iters": obj.cg_iters, "mg_levels": len(obj._mg_static)}
+    for kind, fn, steps in (("forward", lambda: obj._forward(x), 2),
+                            ("adjoint", lambda: obj._adjoint(x, ys), 2),
+                            ("K_apply", lambda: obj._engine.K(X), 1)):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        dev = {e.key: (e.count / steps, e.device_time_total / steps) for e in ev}
+        top = sorted(dev.items(), key=lambda kv: -kv[1][1])[:12]
+        out[kind] = {"launches_per_step": sum(c for c, _ in dev.values()),
+                     "device_us_per_step": sum(t for _, t in dev.values()),
+                     "host_us_per_step_traced": wall * 1e6 / steps,
+                     "top_kernels_launches_us_per_step": dict(top)}
     return out
 
 
@@ -714,6 +759,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="kernel timing experiments on the card")
     ap.add_argument("--heat-only", action="store_true",
                     help="only the kernels at the heat solve's shape")
+    ap.add_argument("--heat-large", action="store_true",
+                    help="only the large-mesh heat solve: its kernels and its sweep step")
     args = ap.parse_args(argv)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -722,6 +769,12 @@ def main(argv=None) -> int:
     _kernels.build_all(_kernels.SOURCES + _kernels.PROBES)
     if args.heat_only:
         print(json.dumps({"heat_solve": heat_solve_section(), "nvidia_smi": smi}), flush=True)
+        return 0
+    if args.heat_large:
+        print(json.dumps({"heat_large_kernels": heat_solve_section(HEAT_LARGE, HEAT_LARGE_CAPS),
+                          "nvidia_smi": smi}), flush=True)
+        print(json.dumps({"heat_large_sweep": large_sweep_section(), "nvidia_smi": smi}),
+              flush=True)
         return 0
     host = host_side()
     sweep = build_sweep()  # its per-call times before the first trace

@@ -318,6 +318,52 @@ def test_heat_device_loop_and_multistart_count_launches(cuda_device):
     np.testing.assert_allclose(ref.J, seq.J, rtol=1e-12)
 
 
+def _banded_heat(nt, device):
+    from mioc_tpu_torch.models.heat import HeatObj, construct_mesh_hierarchy
+
+    return HeatObj(nt=nt, mesh_hierarchy=construct_mesh_hierarchy(refinements=2),
+                   solver="mg", cg_iters=8, sparse_format="banded", device=device)
+
+
+@pytest.mark.parametrize("rows", [1, 2, 9, 17])
+def test_banded_heat_rows_bit_equal_single_on_card(cuda_device, rows):
+    """The banded mg engine on the card: every row of a batched forward and
+    adjoint has the single evaluation's bits (16-row products, row sums of
+    one shape)."""
+    obj = _banded_heat(12, cuda_device)
+    rng = np.random.default_rng(rows)
+    xs = torch.as_tensor(rng.integers(0, 6, size=(rows, 12, 2)).astype(float),
+                         device=cuda_device)
+    f, ys = obj._forward_batch(xs)
+    df, lam = obj._adjoint_batch(xs, ys)
+    for r in range(rows):
+        f1, y1 = obj._forward(xs[r])
+        d1, l1 = obj._adjoint(xs[r], y1)
+        assert torch.equal(f1, f[r]) and torch.equal(y1, ys[:, r])
+        assert torch.equal(d1, df[r]) and torch.equal(l1, lam[r])
+
+
+def test_banded_heat_solves_on_card_equal_cpu(cuda_device):
+    """The banded mg engine's host solve on the card takes the CPU solve's
+    decisions; its device loop, speculative and sequential, the same."""
+    from mioc_tpu_torch.solvers.trm import TRMParameters, trm_solve
+    from mioc_tpu_torch.solvers.trm_device import trm_solve_device
+
+    par = TRMParameters(beta=1e-3, delta0=2.0, p=2)
+    res = trm_solve(_banded_heat(20, cuda_device), par, seed=0)
+    ref = trm_solve(_banded_heat(20, "cpu"), par, seed=0)
+    assert (res.iterations, res.inner_steps, res.f_evals) == (
+        ref.iterations, ref.inner_steps, ref.f_evals)
+    np.testing.assert_array_equal(res.u, ref.u)
+    np.testing.assert_allclose(res.J, ref.J, rtol=1e-12)
+    obj = _banded_heat(20, cuda_device)
+    spec = trm_solve_device(obj, par, seed=0)
+    seq = trm_solve_device(obj, par, seed=0, speculative=False)
+    for name in spec._fields:
+        np.testing.assert_array_equal(getattr(spec, name), getattr(seq, name))
+    np.testing.assert_array_equal(spec.u, res.u)
+
+
 # ------------------------------------------------------------ chase_vec
 
 

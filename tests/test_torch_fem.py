@@ -7,9 +7,20 @@ affine maps), refinements, prolongations, dofmaps and assembled matrices
 are EQUAL, not close.  Every mesh here comes from the same triangulator in
 both packages (asserted: the native one wherever a C++ compiler is on the
 machine).  ``detred``'s fold trees give the JAX package's bits.
+
+The JAX package's loader links its library in place
+(``mioc_tpu/native/libmioc_triangle.so``), so under pytest-xdist a worker
+whose ``ctypes.CDLL`` lands while another worker is still linking it gets
+``OSError``, and the loader keeps ``None`` for the rest of that process: its
+meshes would come from the Python generator.  :func:`load_jax_triangulator`
+(a module-scoped autouse fixture here, in ``test_torch_heat.py`` and in
+``test_torch_sparse.py``) waits for the library instead.
 """
 
+import ctypes
 import pathlib
+import shutil
+import time
 import warnings
 
 import numpy as np
@@ -29,6 +40,30 @@ from mioc_tpu_torch.ops import detred as tdet  # noqa: E402
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 MESH_FIELDS = ("p", "t", "e", "be", "cell_to_edge", "affine_matrix", "affine_vector",
                "affine_invmatrixT")
+
+
+def load_jax_triangulator(timeout=120.0, pause=0.5):
+    """The JAX package's native triangulator, loaded: where its loader gave
+    ``None`` while a C++ compiler is on PATH, clear its latch, wait
+    ``pause`` seconds and load again, for up to ``timeout`` seconds.  A
+    finished link is newer than its source, so a retry only loads it, and a
+    loaded mapping survives another worker's relink.  Asserts that the
+    library loaded wherever a compiler is on PATH."""
+    lib = jnative._load()
+    compiler = shutil.which("g++") or shutil.which("clang++")
+    deadline = time.monotonic() + timeout
+    while lib is None and compiler and time.monotonic() < deadline:
+        time.sleep(pause)
+        jnative._TRIED, jnative._LIB = False, None
+        lib = jnative._load()
+    assert lib is not None or compiler is None, \
+        f"the JAX package's triangulator did not load within {timeout} s"
+    return lib
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_triangulator():
+    load_jax_triangulator()
 
 
 def _same_mesh(a, b):
@@ -73,6 +108,27 @@ def test_missing_compiler_warns_once_and_falls_back(monkeypatch, tmp_path):
         assert tnative.triangulate(poly, 1.0) is None
         mesh = tf.init_mesh(poly, 1.0)  # the Python generator, as the JAX package
     _same_mesh(mesh, jf.mesh._init_mesh_python(poly, 1.0))
+
+
+def test_jax_triangulator_load_retries_after_a_failed_load(monkeypatch):
+    """A first ``CDLL`` that raises ``OSError`` (a worker loading while
+    another links) still ends with the native library and equal meshes."""
+    real, calls = ctypes.CDLL, []
+
+    def flaky(path, *args, **kwargs):
+        calls.append(path)
+        if len(calls) == 1:
+            raise OSError(f"{path}: file too short")
+        return real(path, *args, **kwargs)
+
+    monkeypatch.setattr(jnative, "_TRIED", False)
+    monkeypatch.setattr(jnative, "_LIB", None)
+    monkeypatch.setattr(jnative.ctypes, "CDLL", flaky)
+    lib = load_jax_triangulator(timeout=30.0, pause=0.01)
+    if shutil.which("g++") or shutil.which("clang++"):
+        assert lib is not None and len(calls) >= 2
+        assert tnative.available()
+    _same_mesh(tf.mesh_library("squareg", 0.5), jf.mesh_library("squareg", 0.5))
 
 
 @pytest.mark.parametrize("order", [1, 2, 3, 4, 5, 6])

@@ -33,6 +33,7 @@ from mioc_tpu_torch.ops import bellman as tb  # noqa: E402
 from mioc_tpu_torch.solvers.trm import TRMParameters, trm_solve  # noqa: E402
 from mioc_tpu_torch.solvers.trm_device import (  # noqa: E402
     multistart_solve_device, trm_solve_device)
+from test_torch_fem import load_jax_triangulator  # noqa: E402
 
 PRESET = dict(beta=1e-3, delta0=2.0, p=2)
 INTS = ("converged", "iterations", "inner_steps", "f_evals", "df_evals", "dp_builds")
@@ -44,6 +45,12 @@ def _one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _jax_triangulator():
+    """Both packages' meshes from the native triangulator (test_torch_fem.py)."""
+    load_jax_triangulator()
 
 
 _PAIRS = {}
@@ -198,20 +205,230 @@ def test_default_heat_and_registry():
     assert np.array_equal(t2.M_invF.numpy(), np.asarray(j.M_invF))
 
 
-def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 4"):
-        theat.HeatObj(nt=10, solver="cg", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 4"):
-        theat.HeatObj(nt=10, solver="mg", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 4"):
-        theat.HeatObj(nt=10, mesh=theat.construct_mesh(refinements=1),
-                      sparse_format="banded", device="cpu")
+def test_sparse_modes_settings_and_errors():
+    """The cg/mg modes construct (the JAX package's errors for a bad
+    request), build no N×N array, and set the wave's switch by engine:
+    on for dense and banded, off for ELL (mioc_tpu/models/heat.py:163-187)."""
+    mesh = theat.construct_mesh(refinements=1)
+    with pytest.raises(ValueError, match="refinement chain"):
+        theat.HeatObj(nt=10, mesh=mesh, solver="mg", device="cpu")
+    with pytest.raises(ValueError, match="unknown sparse format"):
+        theat.HeatObj(nt=10, mesh=mesh, solver="cg", sparse_format="csr", device="cpu")
+    with pytest.raises(ValueError, match="unknown operator mode"):
+        theat.HeatObj(nt=10, mesh=mesh, solver="lu", device="cpu")
+    for solver, fmt, exact in (("dense", "ell", True), ("cg", "ell", False),
+                               ("cg", "banded", True), ("mg", "ell", False),
+                               ("mg", "banded", True)):
+        kw = dict(mesh_hierarchy=theat.construct_mesh_hierarchy(refinements=1)) \
+            if solver == "mg" else dict(mesh=mesh)
+        t = theat.HeatObj(nt=10, solver=solver, sparse_format=fmt, device="cpu", **kw)
+        assert t._batched_sweeps_bitexact is exact and t._speculative_multistart is exact
+        assert (t.dof_perm is not None) == (solver != "dense" and fmt == "banded")
+        if solver != "dense":
+            assert t._Mj is None and not hasattr(t, "Sinv")
+            N = t.Nglobal_dofs
+            assert all(tuple(a.shape) != (N, N) for a in vars(t).values()
+                       if isinstance(a, torch.Tensor))
+    # solver="mg" with no mesh takes the default hierarchy (N = 545).
+    assert theat.HeatObj(nt=4, solver="mg", device="cpu").Nglobal_dofs == 545
 
 
 def test_heat_defaults_to_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         theat.HeatObj(nt=10, mesh=theat.construct_mesh(refinements=1))
+
+
+@pytest.mark.parametrize("solver,fmt", [("cg", "ell"), ("mg", "banded")])
+def test_sparse_heat_defaults_to_cuda(monkeypatch, solver, fmt):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        theat.HeatObj(nt=10, mesh_hierarchy=theat.construct_mesh_hierarchy(refinements=1),
+                      solver=solver, sparse_format=fmt)
+
+
+# -- the sparse large-mesh engines -------------------------------------------
+# The JAX package's cases (tests/test_heat.py:86-137): the twice-refined mesh
+# (N = 145, two 128-row blocks on the banded engine), Jacobi-CG with 80
+# iterations, mg-CG with 10 over the three-mesh hierarchy.  Measured on the
+# CPU against the JAX package at the same mode: f within 3e-15 relative,
+# ∇f within 8e-15 of its max, states within 4e-15 of theirs.
+SPARSE_MODES = [("cg", "ell"), ("cg", "banded"), ("mg", "ell"), ("mg", "banded")]
+_SPARSE = {}
+
+
+def _sparse_pair(solver, fmt, nt=30):
+    key = (solver, fmt, nt)
+    if key not in _SPARSE:
+        kw = dict(solver=solver, sparse_format=fmt, cg_iters=80 if solver == "cg" else 10)
+        if solver == "mg":
+            j = jheat.HeatObj(nt=nt, mesh_hierarchy=jheat.construct_mesh_hierarchy(
+                refinements=2), **kw)
+            t = theat.HeatObj(nt=nt, mesh_hierarchy=theat.construct_mesh_hierarchy(
+                refinements=2), device="cpu", **kw)
+        else:
+            j = jheat.HeatObj(nt=nt, mesh=jheat.construct_mesh(refinements=2), **kw)
+            t = theat.HeatObj(nt=nt, mesh=theat.construct_mesh(refinements=2), device="cpu",
+                              **kw)
+        _SPARSE[key] = (j, t)
+    return _SPARSE[key]
+
+
+@pytest.mark.parametrize("solver,fmt", SPARSE_MODES)
+def test_sparse_operators_equal_jax(solver, fmt):
+    j, t = _sparse_pair(solver, fmt)
+    assert t.Nglobal_dofs == j.Nglobal_dofs == 145 and t.tau == j.tau
+    for name in ("M_invF", "state0"):
+        assert np.array_equal(getattr(t, name).numpy(), np.asarray(getattr(j, name))), name
+    assert np.array_equal(t._dinv.numpy(), np.asarray(j._dinv))
+    if fmt == "banded":
+        assert np.array_equal(t.dof_perm, j.dof_perm)
+        assert t._Kspec == j._Kspec and t._Mspec == j._Mspec
+        assert np.array_equal(t._Kblk_host, np.asarray(j._Kblk))
+        assert np.array_equal(t._Mblk_host, np.asarray(j._Mblk))
+    else:
+        for name in ("_Kv", "_Kc", "_Mv", "_Mc"):
+            assert np.array_equal(getattr(t, name).numpy(), np.asarray(getattr(j, name))), name
+    if solver == "mg":
+        for L, jL in zip(t._mg_host["levels"], j._mg_ops["levels"]):
+            for k in jL:
+                assert np.array_equal(L[k], np.asarray(jL[k])), k
+
+
+@pytest.mark.parametrize("solver,fmt", SPARSE_MODES)
+def test_sparse_f_states_and_gradient_match_jax(solver, fmt):
+    """f, ∇f, the states and the adjoint against the JAX package at the same
+    mode (f rtol 1e-12, the rest 1e-11 of their max) and f and ∇f against
+    the port's dense mode (rtol 1e-10 and 1e-8, tests/test_heat.py's)."""
+    j, t = _sparse_pair(solver, fmt)
+    _, dense = _pair(2, 30)
+    for x in _controls(t, 2, 11):
+        j.x = jnp.asarray(x)
+        fj = j.eval_f_()
+        j.eval_df_()
+        t.x = torch.as_tensor(x)
+        ft = t.eval_f_()
+        t.eval_df_()
+        np.testing.assert_allclose(ft, fj, rtol=1e-12)
+        dj = np.asarray(j.df)
+        np.testing.assert_allclose(t.df.numpy(), dj, rtol=0, atol=1e-11 * np.abs(dj).max())
+        ys = j.unpermute_dofs(np.asarray(j.state))
+        np.testing.assert_allclose(t.unpermute_dofs(t.state).numpy(), ys, rtol=0,
+                                   atol=1e-11 * np.abs(ys).max())
+        lam = j.unpermute_dofs(np.asarray(j.adjoint))
+        np.testing.assert_allclose(t.unpermute_dofs(t.adjoint).numpy(), lam, rtol=0,
+                                   atol=1e-11 * np.abs(lam).max())
+        dense.x = torch.as_tensor(x)
+        np.testing.assert_allclose(ft, dense.eval_f_(), rtol=1e-10)
+        dense.eval_df_()
+        np.testing.assert_allclose(t.df.numpy(), dense.df.numpy(), rtol=1e-8)
+
+
+def test_sparse_fd_gradient():
+    """mg-CG on the banded engine: the adjoint stays consistent with the
+    (inexactly solved) forward (tests/test_heat.py:107)."""
+    _, t = _sparse_pair("mg", "banded")
+    rng = np.random.default_rng(2)
+    x = rng.integers(0, 6, size=(t.nt, 2)).astype(float)
+    t.x = torch.as_tensor(x)
+    f0 = t.eval_f_()
+    t.eval_df_()
+    h = rng.normal(size=x.shape)
+    dfh = t.tau * float((t.df.numpy() * h).sum())
+    fd = (t.eval_f(x + 1e-6 * h) - f0) / 1e-6
+    assert abs(fd - dfh) / abs(dfh) < 1e-5
+
+
+def test_unpermute_dofs_round_trip():
+    _, t = _sparse_pair("mg", "banded")
+    perm = t.dof_perm
+    y = np.random.default_rng(3).normal(size=(3, t.Nglobal_dofs))
+    assert np.array_equal(t.unpermute_dofs(y[:, perm]), y)
+    assert torch.equal(t.unpermute_dofs(torch.as_tensor(y[:, perm])), torch.as_tensor(y))
+    _, ell = _sparse_pair("mg", "ell")
+    assert ell.unpermute_dofs(y) is y
+    # The permuted state0 is the assembly-order one, permuted.
+    _, dense = _pair(2, 30)
+    assert np.array_equal(t.unpermute_dofs(t.state0.numpy()), dense.state0.numpy())
+
+
+@pytest.mark.parametrize("rows", [1, 2, 9, 17])
+def test_banded_rows_bit_equal_single(rows):
+    """Every row of a batched forward and adjoint on the banded mg engine
+    has the single evaluation's bits (16-row chunks, row sums of one
+    shape)."""
+    _, t = _sparse_pair("mg", "banded", nt=8)
+    xs = torch.as_tensor(_controls(t, rows, 40 + rows))
+    f, ys = t._forward_batch(xs)
+    df, lam = t._adjoint_batch(xs, ys)
+    assert f.shape == (rows,) and ys.shape == (t.nt + 1, rows, t.Nglobal_dofs)
+    for r in range(rows):
+        f1, y1 = t._forward(xs[r])
+        d1, l1 = t._adjoint(xs[r], y1)
+        assert torch.equal(f1, f[r]) and torch.equal(y1, ys[:, r])
+        assert torch.equal(d1, df[r]) and torch.equal(l1, lam[r])
+
+
+@pytest.fixture(scope="module")
+def banded_solves():
+    """The banded mg engine (N = 145, nt=20, mg-CG 8): the JAX package's
+    host solve from seed 0, the port's host solve and its device solves,
+    speculative and sequential."""
+    kw = dict(solver="mg", cg_iters=8, sparse_format="banded")
+    jo = jheat.HeatObj(nt=20, mesh_hierarchy=jheat.construct_mesh_hierarchy(refinements=2),
+                       **kw)
+    to = theat.HeatObj(nt=20, mesh_hierarchy=theat.construct_mesh_hierarchy(refinements=2),
+                       device="cpu", **kw)
+    out = {"jax": jtrm.trm_solve(jo, jtrm.TRMParameters(**PRESET), seed=0),
+           "host": trm_solve(to, TRMParameters(**PRESET), seed=0)}
+    for spec in (True, False):
+        out[spec] = trm_solve_device(to, TRMParameters(**PRESET), seed=0, speculative=spec)
+    return out
+
+
+def test_banded_host_solve_matches_jax(banded_solves):
+    rt, rj = banded_solves["host"], banded_solves["jax"]
+    assert rt.converged
+    _same_result(rt, rj)
+
+
+@pytest.mark.parametrize("speculative", [True, False], ids=["speculative", "sequential"])
+def test_banded_device_solve_takes_the_host_decisions(banded_solves, speculative):
+    """The device loop takes the host loop's decisions (one ∇f fewer), and
+    the speculative wave (8 rows: one chunk) equals the sequential loop
+    field for field."""
+    r, host = banded_solves[speculative], banded_solves["host"]
+    assert bool(r.converged) and int(r.iterations) == host.iterations
+    assert int(r.inner_steps) == host.inner_steps and int(r.df_evals) == host.df_evals - 1
+    np.testing.assert_array_equal(r.u, host.u)
+    np.testing.assert_allclose(float(r.J), host.J, rtol=1e-12)
+    if speculative:
+        _same_result(r, banded_solves[False])
+        assert float(r.J) == float(banded_solves[False].J)
+
+
+@pytest.mark.parametrize("fmt", ["ell", "banded"])
+def test_interop_carries_a_sparse_jax_heat_across(fmt):
+    """The JAX HeatObj's host operators (and its prolongations) build the
+    port's engine with no assembly of its own; both compute the same f."""
+    from mioc_tpu.fem import prolongation as jprolongation
+
+    j, _ = _sparse_pair("mg", fmt)
+    hier = j._mesh_hierarchy
+    params = {k: getattr(j, k) for k in interop.PROBLEM_PARAMS["heat"]
+              + interop.HEAT_SPARSE_OPERATORS + interop.HEAT_ENGINE}
+    params["prolongations"] = [jprolongation(hier[i - 1], hier[i], j.fe)
+                               for i in range(len(hier) - 1, 0, -1)]
+    if fmt == "banded":
+        params["dof_perm"] = j.dof_perm
+    t = interop.objective_from_params("heat", params, device="cpu")
+    assert t.mesh is None and t.solver_mode == "mg" and t.sparse_format == fmt
+    assert np.array_equal(t.state0.numpy(), np.asarray(j.state0))
+    for x in _controls(t, 2, 5):
+        np.testing.assert_allclose(t.eval_f(x), j.eval_f(x), rtol=1e-12)
+    with pytest.raises(KeyError, match="missing sparse heat operators"):
+        interop.objective_from_params("heat", {**_scalars(j), "solver_mode": "mg"},
+                                      device="cpu")
 
 
 def _same_result(rt, rj, fields=INTS):

@@ -49,7 +49,8 @@ def test_port_modules_found():
             "models/fuller.py", "utils/io.py", "fem/__init__.py", "fem/quadrature.py",
             "fem/_native_triangle.py", "fem/mesh.py", "fem/fe.py", "fem/assembly.py",
             "fem/solve.py", "ops/detred.py", "ops/rows.py", "objectives/pde.py",
-            "models/heat.py"} <= names
+            "models/heat.py", "fem/sparse_device.py", "fem/banded_device.py",
+            "fem/multigrid.py"} <= names
     assert (ROOT / "chip_smoke.py").exists()
 
 
