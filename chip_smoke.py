@@ -57,12 +57,36 @@ Run from the root of a checkout.  It builds the CUDA kernels from
    d. the same with ``speculative=True``: every field equal to (c), through
       ``dp_build_batched`` and ``chase_trials``.
    No path may call a plain DP version on the card;
+   then ``temporal``: the banded temporal DP (``parallel.temporal``, tensor
+   code) at the fishing preset (nt=1024, B=170, L=3), heat500 (500, 100, 36)
+   and heat200 (200, 40, 36): ``phis[0].T`` equal to ``dp_build``'s Φ0 to
+   rtol 1e-10, the paths equal to ``chase``'s at B and every halving cap,
+   the tables bit-equal to the same function's on the CPU, with ms per
+   ``temporal_tables``/``temporal_backtrack`` beside the kernels' ms and the
+   peak device memory; and the fishing preset host loop with
+   ``dp_backend="temporal"`` from seed 0: the iterations, inner steps and u
+   of (a), J to rtol 1e-10, with no kernel launched; then ``continuous``:
+   ``SteepestDescent(ArmijoLS(sigma=1e-3), maxiter=8)`` on ``LVMObj(nt=1024)``
+   from x = 0.5 and ``NonlinCG(WolfeLS())``, ``SteepestDescent(WolfeLS())``
+   on a 12×1 quadratic on the card: the JAX package's f (rtol 1e-12),
+   iterations and evaluation counts, the quadratic's x within 1e-12
+   (``REF_SD_ARMIJO``, ``REF_QUADRATIC``);
 4. times the batched sweeps (ms per batched f and ∇f at the batch sizes the
    paths use);
 5. holds the rows of ``ConvObj(nt=2048)``'s batched f and ∇f (1, 9 and 32
    rows) bit-equal to single evaluations, and reports whether one raw
    ``torch.matmul`` would have given each row the same bits (it is why the
    objective evaluates in fixed-shape chunks);
+   then ``mixed`` (the kernels first at the integer block's nt=240 shape,
+   B=40): (a) ``mixed_solve(LVMMixedObj(nt=1024), MixedParameters(trm=
+   preset, rounds=1), seed=0)`` and (b) the port's CLI in this process,
+   ``mixed --n 240 --seed 0 --no-plot --no-log``: the JAX package's J (rtol
+   1e-12), rounds, ``converged`` and forward/adjoint sweep counts
+   (``REF_MIXED_A``/``REF_MIXED_B``), for (a) its history (rtol 1e-12), its
+   integer columns equal to the JAX package's and ``c`` within 1e-12
+   (``tests/data/jax_mixed_fishing_nt1024_round1.npz``), each through
+   ``dp_build`` and ``chase`` only, with where its time goes (sweeps × ms
+   per sweep, kernels × ms per call);
 6. runs the CLI as a user does, ``mioc_tpu_torch.cli.main`` in this process
    with stdout captured and its JSON line parsed, each run with the launch
    counts set to 0 just before and read just after:
@@ -1705,6 +1729,312 @@ def heat_large(torch) -> dict:
     return out
 
 
+# The continuous optimizers (ROADMAP.md queue A item 5): the JAX package's
+# results on the CPU at float64, from
+#   JAX_PLATFORMS=cpu JAX_ENABLE_X64=1 python -c "import numpy as np, sys
+#   sys.path.insert(0, 'tests'); from test_aux import Quadratic
+#   from mioc_tpu.models import LVMObj
+#   from mioc_tpu.solvers.continuous import (SteepestDescent, NonlinCG, ArmijoLS,
+#       WolfeLS, opt_optimize)
+#   for opt in (NonlinCG(ls=WolfeLS()), SteepestDescent(ls=WolfeLS())):
+#       obj = Quadratic(); opt.maxiter = 500
+#       f = opt_optimize(opt, obj, np.zeros((12, 1)))
+#       print(f, np.asarray(obj.x)[:, 0].tolist(), opt.iter, obj.f_evals, obj.df_evals)
+#   obj = LVMObj(nt=1024)
+#   f = opt_optimize(SteepestDescent(ls=ArmijoLS(sigma=1e-3), maxiter=8), obj,
+#                    np.full((1024, 3), 0.5))
+#   print(f, obj.f_evals, obj.df_evals)"
+REF_SD_ARMIJO = (0.4602725065355201, 8, 25, 9)  # f, iterations, f and ∇f evaluations
+REF_QUADRATIC = {
+    "ncg-wolfe": (-0.18959042767020942, 12, 25, 25, (
+        -0.015003609825700343, -0.017492076601305195, -0.1082366408871004,
+        -0.016752779396116566, -0.009342553095178986, 0.023652672394100016,
+        -0.027610080610073945, 0.015780470711037723, -0.03574496252741391,
+        -0.029863312397720852, 0.016549486796858744, -0.0553859330441262)),
+    "sd-wolfe": (-0.18959042767020942, 39, 79, 79, (
+        -0.015003609544525865, -0.017492076678643945, -0.10823664060257447,
+        -0.016752779486099743, -0.009342553188968851, 0.02365267254005254,
+        -0.02761008059739668, 0.01578047068542721, -0.03574496269243418,
+        -0.029863312069845677, 0.016549486707048606, -0.05538593295538147)),
+}
+
+# The mixed solver (ROADMAP.md queue A item 5) on LVMMixedObj under the
+# registry's "mixed" preset (β = 1e-4, Δ⁰ = 2, p = ∞), the JAX package's
+# results on the CPU at float64, counting calls of obj._forward/_adjoint:
+# (a) mixed_solve(LVMMixedObj(nt=1024), MixedParameters(trm=preset,
+#     rounds=1), seed=0): J, rounds, converged, history, sweeps; its control
+#     res.x in tests/data/jax_mixed_fishing_nt1024_round1.npz (np.savez_compressed(x=...));
+# (b) JAX_PLATFORMS=cpu JAX_ENABLE_X64=1 python -m mioc_tpu.cli mixed --n 240
+#     --seed 0 --no-plot --no-log: J, rounds, converged (the printed JSON),
+#     and the sweeps of mixed_solve(LVMMixedObj(nt=240), MixedParameters(
+#     trm=preset), seed=0), the solve that CLI runs.
+MIXED_PRESET = dict(beta=1e-4, delta0=2.0, p=math.inf)
+REF_MIXED_A = dict(nt=1024, J=0.8986080626037327, rounds=1, converged=False,
+                   history=(5.186650813287828, 1.444464319369251, 0.8986080626037327),
+                   f=303, df=73)
+REF_MIXED_X = os.path.join("tests", "data", "jax_mixed_fishing_nt1024_round1.npz")
+REF_MIXED_B = dict(nt=240, J=0.8781014228848273, rounds=20, converged=False, f=2707, df=677)
+# The integer block's DP shape at nt = 240 (B = ⌊2/(12/240)⌋ = 40, L = 3).
+MIXED240_SHAPE = ("mixed240", 240, 40, ("bounded", [[0, 1]] * 3), (math.inf, 1e-4, 12.0 / 240))
+
+# The temporal DP's shapes: the fishing preset, heat500 and heat200 (name,
+# nt, B, level set, (p, beta, tau)).
+TEMPORAL_SHAPES = (SHAPES[0], HEAT_SHAPE, LARGE_SHAPE)
+
+
+def quadratic(torch, n=12, seed=0):
+    """½ xᵀ Q x − bᵀx on an (n, 1) variable on the card: the port's
+    counterpart of tests/test_aux.py's ``Quadratic``."""
+    from mioc_tpu_torch.objectives.base import LazyObjective
+
+    class Quadratic(LazyObjective):
+        def __init__(self):
+            super().__init__()
+            self.device, self.dtype = torch.device(DEVICE), torch.float64
+            rng = np.random.default_rng(seed)
+            A = rng.normal(size=(n, n))
+            self.Q = self.as_control(A @ A.T + n * np.eye(n))
+            self.b = self.as_control(rng.normal(size=n))
+            self.nt, self.nu, self.nv = n, 1, 0
+            self.T0, self.T1, self.tau = 0.0, 1.0, 1.0 / n
+            self.x = self.as_control(np.zeros((n, 1)))
+
+        def eval_f_impl(self, x, cache):
+            v = x[:, 0]
+            return 0.5 * v @ (self.Q @ v) - self.b @ v, None
+
+        def eval_df_impl(self):
+            return (self.Q @ self.x[:, 0] - self.b)[:, None]
+
+    return Quadratic()
+
+
+def continuous_phase(torch) -> dict:
+    """SD-Armijo on the relaxed fishing preset and the two Wolfe optimizers
+    on the quadratic, on the card, against the JAX package's results."""
+    from mioc_tpu_torch.models import LVMObj
+    from mioc_tpu_torch.solvers.continuous import (ArmijoLS, NonlinCG, SteepestDescent,
+                                                   WolfeLS, opt_optimize)
+
+    out = {"phase": "continuous", "dtype": "float64"}
+    t0 = time.perf_counter()
+    obj = LVMObj(nt=1024)
+    opt = SteepestDescent(ls=ArmijoLS(sigma=1e-3), maxiter=8)
+    f = opt_optimize(opt, obj, np.full((1024, 3), 0.5))
+    torch.cuda.synchronize()
+    out["sd_armijo_lvm1024"] = {"f": f, "iterations": opt.iter, "f_evals": obj.f_evals,
+                                "df_evals": obj.df_evals, "wall_s": time.perf_counter() - t0}
+    for name, opt in (("ncg-wolfe", NonlinCG(ls=WolfeLS())),
+                      ("sd-wolfe", SteepestDescent(ls=WolfeLS()))):
+        obj = quadratic(torch)
+        opt.maxiter = 500
+        t0 = time.perf_counter()
+        f = opt_optimize(opt, obj, np.zeros((12, 1)))
+        x = obj.x[:, 0].cpu().numpy()
+        out[name] = {"f": f, "iterations": opt.iter, "f_evals": obj.f_evals,
+                     "df_evals": obj.df_evals, "wall_s": time.perf_counter() - t0,
+                     "max_abs_x_err": float(np.abs(x - REF_QUADRATIC[name][4]).max())}
+    emit(out)
+    r = out["sd_armijo_lvm1024"]
+    f_ref, its, nf, ndf = REF_SD_ARMIJO
+    require(abs(r["f"] - f_ref) <= 1e-12 * abs(f_ref), f"SD-Armijo f {r['f']!r} == {f_ref!r}")
+    require((r["iterations"], r["f_evals"], r["df_evals"]) == (its, nf, ndf),
+            f"SD-Armijo iterations/f/∇f evaluations == JAX {its}/{nf}/{ndf}")
+    for name, (f_ref, its, nf, ndf, _) in REF_QUADRATIC.items():
+        r = out[name]
+        require((r["iterations"], r["f_evals"], r["df_evals"]) == (its, nf, ndf),
+                f"{name}: iterations/f/∇f evaluations == JAX {its}/{nf}/{ndf}")
+        require(r["max_abs_x_err"] <= 1e-12, f"{name}: x within 1e-12 of the JAX package's")
+        require(abs(r["f"] - f_ref) <= 1e-12 * abs(f_ref), f"{name}: f {r['f']!r}")
+    return out
+
+
+def count_mixed_sweeps(cls):
+    """Count ``_forward``/``_adjoint`` calls of every ``cls`` instance (the
+    JAX constants count the same calls); returns the counts and an undo."""
+    counts = {"f": 0, "df": 0}
+    fwd, adj = cls._forward, cls._adjoint
+
+    def forward(self, x):
+        counts["f"] += 1
+        return fwd(self, x)
+
+    def adjoint(self, x, ys):
+        counts["df"] += 1
+        return adj(self, x, ys)
+
+    cls._forward, cls._adjoint = forward, adjoint
+
+    def undo():
+        cls._forward, cls._adjoint = fwd, adj
+
+    return counts, undo
+
+
+def mixed_sweep_ms(torch, nt: int) -> dict:
+    """ms per mixed forward and adjoint sweep at ``nt`` (CUDA events,
+    median of 3), and the sweep's probe of ``torch.addcmul``."""
+    from mioc_tpu_torch.models import LVMMixedObj
+    from mioc_tpu_torch.ops import xla_order
+    from mioc_tpu_torch.utils.init import rand_func
+
+    obj = LVMMixedObj(nt=nt)
+    x = obj.as_control(rand_func(obj, seed=0))
+    _, ys = obj._forward(x)
+    return {"f": statistics.median(median_ms(torch, lambda: obj._forward(x), 3)),
+            "df": statistics.median(median_ms(torch, lambda: obj._adjoint(x, ys), 3)),
+            "addcmul_fuses": xla_order.addcmul_fuses(obj.device)}
+
+
+def mixed_phase(torch, kernel_ms: dict) -> dict:
+    """(a) one round of the mixed solve at nt=1024 and (b) the port's CLI
+    ``mixed --n 240``, each against the JAX package's results; ``kernel_ms``
+    gives ms per dp_build and chase at each nt."""
+    from mioc_tpu_torch.models import LVMMixedObj
+    from mioc_tpu_torch.solvers.mixed import MixedParameters, mixed_solve
+    from mioc_tpu_torch.solvers.trm import TRMParameters
+
+    out = {}
+    sweep_ms = {1024: mixed_sweep_ms(torch, 1024), 240: mixed_sweep_ms(torch, 240)}
+    counts, undo = count_mixed_sweeps(LVMMixedObj)
+    try:
+        read = zero_counts(torch)
+        t0 = time.perf_counter()
+        res = mixed_solve(LVMMixedObj(nt=1024), MixedParameters(
+            trm=TRMParameters(**MIXED_PRESET), rounds=1), seed=0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, plain_calls = read()
+        a = {"path": "mixed_a", "nt": 1024, "J": res.J, "rounds": res.rounds,
+             "converged": res.converged, "history": res.history, "sweeps": dict(counts),
+             "launches": launches, "plain_calls_on_card": plain_calls, "wall_s": wall}
+        for key in counts:
+            counts[key] = 0
+        r = run_cli(torch, "mixed_cli", ["mixed", "--n", "240", "--seed", "0", "--no-plot",
+                                         "--no-log"])
+        b = {"path": "mixed_cli", "nt": 240, "J": r["J"], "rounds": r["rounds"],
+             "converged": r["converged"], "sweeps": dict(counts),
+             "launches": r["launches"], "plain_calls_on_card": r["plain_calls_on_card"],
+             "wall_s": r["wall_s_measured"]}
+    finally:
+        undo()
+    with np.load(os.path.join(ROOT, REF_MIXED_X)) as z:
+        x_ref = z["x"]
+    a["int_columns_equal"] = bool(np.array_equal(res.x[:, 1:], x_ref[:, 1:]))
+    a["c_max_abs_err"] = float(np.abs(res.x[:, 0] - x_ref[:, 0]).max())
+    a["x_bit_equal"] = bool(np.array_equal(res.x, x_ref))
+    for r, nt in ((a, 1024), (b, 240)):
+        ms = sweep_ms[nt]
+        sweeps_s = (r["sweeps"]["f"] * ms["f"] + r["sweeps"]["df"] * ms["df"]) / 1e3
+        k_s = sum(n * kernel_ms[nt][k] for k, n in r["launches"].items() if n) / 1e3
+        r.update(phase="mixed", sweep_ms=ms, sweeps_s_estimate=sweeps_s,
+                 kernels_s_estimate=k_s, kernels_share=k_s / r["wall_s"],
+                 rest_s=r["wall_s"] - sweeps_s - k_s)
+        emit(r)
+        out[r["path"]] = r
+    for r, ref in ((a, REF_MIXED_A), (b, REF_MIXED_B)):
+        name = r["path"]
+        require(abs(r["J"] - ref["J"]) <= 1e-12 * abs(ref["J"]),
+                f"{name}: J {r['J']!r} == JAX {ref['J']!r}")
+        require((r["rounds"], r["converged"]) == (ref["rounds"], ref["converged"]),
+                f"{name}: rounds/converged == JAX {ref['rounds']}/{ref['converged']}")
+        require((r["sweeps"]["f"], r["sweeps"]["df"]) == (ref["f"], ref["df"]),
+                f"{name}: {r['sweeps']} sweeps == JAX {ref['f']}/{ref['df']}")
+        n = r["launches"]
+        require(n["dp_build"] > 0 and n["chase"] >= n["dp_build"]
+                and not any(v for k, v in n.items() if k not in ("dp_build", "chase")),
+                f"{name}: dp_build and chase launches, no other kernel: {n}")
+        require(not any(r["plain_calls_on_card"].values()), f"{name}: no plain DP on the card")
+    require(len(a["history"]) == len(REF_MIXED_A["history"]) and all(
+        abs(h - w) <= 1e-12 * abs(w) for h, w in zip(a["history"], REF_MIXED_A["history"])),
+        f"mixed_a: history {a['history']} == JAX")
+    require(a["int_columns_equal"], "mixed_a: integer columns equal to the JAX package's")
+    require(a["c_max_abs_err"] <= 1e-12, f"mixed_a: c within 1e-12 ({a['c_max_abs_err']})")
+    return out
+
+
+def temporal_phase(torch, host) -> dict:
+    """The banded temporal DP on the card at the fishing preset, heat500 and
+    heat200 shapes against dp_build + chase and against its own tables on
+    the CPU; then the fishing preset host loop on the temporal route against
+    ``host`` (host_path's kernel-route solve)."""
+    from mioc_tpu_torch.models import LVMObj
+    from mioc_tpu_torch.ops import levels as lv
+    from mioc_tpu_torch.ops.backtrack_cuda import chase
+    from mioc_tpu_torch.ops.bellman import max_budget_use, stage_tables
+    from mioc_tpu_torch.ops.bellman_cuda import dp_build
+    from mioc_tpu_torch.parallel.temporal import (temporal_backtrack, temporal_dp_solve,
+                                                  temporal_tables)
+    from mioc_tpu_torch.solvers.trm import TRMParameters, trm_solve
+
+    out = {"phase": "temporal", "dtype": "float64", "shapes": {}}
+    dev = torch.device(DEVICE)
+    for seed, (name, nt, B, (kind, V), (p, beta, tau)) in enumerate(TEMPORAL_SHAPES):
+        adm = lv.bounded_sum_levels(V, 1, 1) if kind == "bounded" else lv.product_levels(V)
+        rng = np.random.default_rng(50 + seed)
+        grad = torch.as_tensor(rng.normal(size=(nt, adm.M)), dtype=torch.float64, device=dev)
+        u_old = torch.as_tensor(adm.levels[rng.integers(0, adm.L, size=nt)],
+                                dtype=torch.float64, device=dev)
+        jump = torch.as_tensor(lv.jump_cost_table(adm.levels, p, beta=beta),
+                               dtype=torch.float64, device=dev)
+        smax = max_budget_use(adm.levels)
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        u_t, i_t, phis = temporal_dp_solve(grad, u_old, adm.levels, jump, tau, B)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        stage, btilde = stage_tables(grad, u_old, adm.levels, tau)
+        U, phi0 = dp_build(stage, btilde, jump, B, smax)
+        p_t, p_k = phis[0].T.cpu().numpy(), phi0.cpu().numpy()
+        finite = np.isfinite(p_k)
+        phi_err = float(np.abs(p_t[finite] - p_k[finite]).max()) if finite.any() else 0.0
+        rel_ok = bool(np.allclose(p_t, p_k, rtol=1e-10, atol=0))
+        caps = sorted(set(schedule(2.0, tau) + [B]), reverse=True)
+        caps = [c for c in caps if c <= B]
+        paths_equal = all(torch.equal(temporal_backtrack(phis, btilde, jump, adm.levels, c)[1],
+                                      chase(U, phi0, btilde, c)) for c in caps)
+        ref = temporal_tables(stage.cpu(), btilde.cpu(), jump.cpu(), B, smax)
+        cpu_bits = torch.equal(phis.cpu().view(torch.int64), ref.view(torch.int64))
+        t_ms = statistics.median(median_ms(
+            torch, lambda: temporal_tables(stage, btilde, jump, B, smax), 3))
+        bt_ms = statistics.median(median_ms(
+            torch, lambda: temporal_backtrack(phis, btilde, jump, adm.levels, B), 3))
+        b_ms = statistics.median(median_ms(
+            torch, lambda: dp_build(stage, btilde, jump, B, smax), 5))
+        c_ms = statistics.median(median_ms(torch, lambda: chase(U, phi0, btilde, B), 5))
+        out["shapes"][name] = {
+            "nt": nt, "B": B, "L": adm.L, "phi0_rtol_1e-10": rel_ok, "phi0_max_abs_err": phi_err,
+            "caps": caps, "paths_equal": paths_equal, "cpu_tables_bit_equal": cpu_bits,
+            "temporal_tables_ms": t_ms, "temporal_backtrack_ms": bt_ms,
+            "dp_build_ms": b_ms, "chase_ms": c_ms, "peak_device_memory_mb": peak / 1e6,
+            "phis_mb": phis.numel() * 8 / 1e6}
+    # The fishing preset host loop on the temporal route, from host_path's start.
+    read = zero_counts(torch)
+    t0 = time.perf_counter()
+    res = trm_solve(LVMObj(nt=1024), TRMParameters(**PRESET, dp_backend="temporal"), seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain_calls = read()
+    out["host_temporal"] = {"J": res.J, "iterations": res.iterations,
+                            "inner_steps": res.inner_steps, "launches": launches,
+                            "plain_calls_on_card": plain_calls, "wall_s": wall,
+                            "timings_s": res.timings}
+    emit(out)
+    for name, s in out["shapes"].items():
+        require(s["phi0_rtol_1e-10"], f"temporal {name}: phis[0].T == Φ0 (rtol 1e-10)")
+        require(s["paths_equal"], f"temporal {name}: paths equal at {s['caps']}")
+        require(s["cpu_tables_bit_equal"], f"temporal {name}: tables bit-equal to the CPU's")
+    h = out["host_temporal"]
+    require((h["iterations"], h["inner_steps"]) == (host.iterations, host.inner_steps),
+            f"temporal host loop: iterations/inner steps {h['iterations']}/"
+            f"{h['inner_steps']} == the kernel route's")
+    require(np.array_equal(res.u, host.u), "temporal host loop: u == the kernel route's")
+    require(abs(res.J - host.J) <= 1e-10 * abs(host.J), "temporal host loop: J (rtol 1e-10)")
+    require(not any(launches.values()) and not any(plain_calls.values()),
+            f"temporal host loop: no kernel and no plain DP: {launches} {plain_calls}")
+    return out
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(ROOT, "mioc_tpu_torch")):
@@ -1750,6 +2080,8 @@ def main() -> int:
     edge_phase(torch)
 
     host, host_launches = host_path(torch)
+    temporal = temporal_phase(torch, host)
+    continuous_phase(torch)
     single, single_launches, single_wall, single_sweeps = device_single_path(torch, host)
     from mioc_tpu_torch.models import LVMObj
 
@@ -1761,6 +2093,12 @@ def main() -> int:
     conv = conv_rows(torch)
     import tempfile
 
+    _, mnt, mB, mspec, mpreset = MIXED240_SHAPE
+    mixed240 = kernel_phase(torch, "mixed240", mnt, mB, mspec, mpreset, torch.float64, 33)
+    fishing64 = phases[("fishing", torch.float64)]
+    mixed = mixed_phase(torch, {
+        nt: {k: ph[k]["kernel_ms"] for k in ("dp_build", "chase")}
+        for nt, ph in ((1024, fishing64), (240, mixed240))})
     with tempfile.TemporaryDirectory() as tmp:
         cli = cli_paths(torch, tmp)
         from mioc_tpu_torch.fem import _native_triangle
@@ -1793,7 +2131,6 @@ def main() -> int:
     # Where the time of each path goes: the sweeps (batches × measured ms per
     # batch), the kernels (launches × measured kernel ms), and the rest
     # (stage tables, selects, the flag reads that end each loop, Python).
-    fishing64 = phases[("fishing", torch.float64)]
     batched64 = phases[("batched", "fishing", torch.float64)]
     kernel_ms = {"dp_build": fishing64["dp_build"]["kernel_ms"],
                  "chase": fishing64["chase"]["kernel_ms"],
@@ -1915,7 +2252,11 @@ def main() -> int:
                      "heat_launches": {p: n[key] for p, n in heat_launches.items()},
                      "heat_shape_ms": heat_kernel_ms[key],
                      "heat_large_launches": {p: n[key] for p, n in large_launches.items()},
-                     "heat_large_shape_ms": large_kernel_ms[key]})
+                     "heat_large_shape_ms": large_kernel_ms[key],
+                     "mixed_launches": {p: r["launches"][key] for p, r in mixed.items()},
+                     "mixed240_shape_ms": (mixed240[key]["kernel_ms"]
+                                           if key in ("dp_build", "chase") else None),
+                     "temporal_host_launches": temporal["host_temporal"]["launches"][key]})
     # Last, as a profiler trace slows every later launch of the process: the
     # kernels of a large-mesh sweep step and of one fine banded application.
     from mioc_tpu_torch.profile_kernels import large_sweep_section

@@ -14,19 +14,23 @@ Differences from the JAX CLI:
 * there is no backend fallback: the run is on ``--device`` or raises;
 * ``--dp-backend``: ``pallas`` means the port's CUDA kernels, the default
   anyway (the plain versions on the CPU); ``scan`` means the plain versions
-  and is refused on the card, where no solve runs them; ``temporal`` and
-  ``sharded`` are not ported and raise ``NotImplementedError``
-  (``solvers.trm.dp_route``, the rule the solvers apply too);
+  and is refused on the card, where no solve runs them; ``temporal`` runs
+  the host loop on the banded temporal DP (``--device-loop`` takes the
+  ordinary route, as the JAX package's does); ``sharded`` is not ported and
+  raises ``NotImplementedError`` (``solvers.trm.dp_route``, the rule the
+  solvers apply too);
 * plotting is not ported (ROADMAP.md queue A item 7), nor the animation of
   a PDE state that the JAX CLI adds for ``heat``: a run that the JAX CLI
-  would plot — a single host-loop solve, or any ``--device-loop`` run,
-  without ``--no-plot`` — raises ``NotImplementedError`` before it solves;
-  the host-loop ``--multistart N`` (N > 1), which the JAX CLI does not plot,
-  runs;
+  would plot — a single host-loop solve, any ``--device-loop`` run, or
+  ``mixed`` — without ``--no-plot`` raises ``NotImplementedError`` before
+  it solves; the host-loop ``--multistart N`` (N > 1), which the JAX CLI
+  does not plot, runs;
 * ``--multistart`` with ``--device-loop`` runs the batched multistart on one
-  device (no mesh);
-* ``mixed`` is listed but not ported: it raises ``NotImplementedError``
-  naming its ROADMAP.md item.
+  device (no mesh).
+
+``mixed`` runs the mixed continuous+integer solver (``solvers.mixed``) and
+prints the JAX CLI's lines and JSON keys (``problem``, ``n``, ``J``,
+``rounds``, ``converged``, ``wall_s``).
 """
 
 from __future__ import annotations
@@ -83,8 +87,9 @@ def main(argv=None):
     ap.add_argument("--dp-backend", default=None,
                     choices=["scan", "pallas", "temporal", "sharded"],
                     help="DP engine: 'pallas' = the CUDA kernels (the default on "
-                         "the card), 'scan' = the plain versions (CPU only); "
-                         "'temporal' and 'sharded' are not ported")
+                         "the card), 'scan' = the plain versions (CPU only), "
+                         "'temporal' = the banded temporal DP (host loop); "
+                         "'sharded' is not ported")
     ap.add_argument("--speculative", dest="speculative", default=None,
                     action="store_true",
                     help="device loop: evaluate the whole trust-region halving "
@@ -100,9 +105,10 @@ def main(argv=None):
                     help="torch device of the solve (default: cuda; no fallback)")
     args = ap.parse_args(argv)
 
-    # The JAX CLI plots where it holds an objective: after a single solve or
-    # any device-loop run, not after the host-loop multistart.
-    if not args.no_plot and (args.device_loop or args.multistart <= 1):
+    # The JAX CLI plots where it holds an objective: after a mixed solve, a
+    # single solve or any device-loop run, not after the host-loop multistart.
+    if not args.no_plot and (args.problem == "mixed" or args.device_loop
+                             or args.multistart <= 1):
         raise NotImplementedError(f"plotting is not ported yet: {_PLOT}; pass --no-plot")
 
     from ._device import resolve_device
@@ -137,6 +143,20 @@ def main(argv=None):
 
     t0 = time.time()
     obj = build_objective(args.problem, args.n, device)
+    if args.problem == "mixed":
+        from .solvers.mixed import MixedParameters, mixed_solve
+
+        mres = mixed_solve(obj, MixedParameters(trm=par), x0=_julia_x0(obj),
+                           seed=args.seed)
+        wall = time.time() - t0
+        print(f"{wall:.3f} seconds")
+        print(f"Objective Value: J = {mres.J}")
+        print(json.dumps({
+            "problem": "mixed", "n": args.n, "J": mres.J,
+            "rounds": mres.rounds, "converged": mres.converged,
+            "wall_s": round(wall, 3),
+        }))
+        return 0
     if args.device_loop:
         from .solvers.trm_device import (DeviceTRMResult, multistart_solve_device,
                                          trm_solve_device)

@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
-from .models import ConvObj, DTMObj, FullerObj, HeatObj, LVMObj, VPOObj
+from .models import ConvObj, DTMObj, FullerObj, HeatObj, LVMMixedObj, LVMObj, VPOObj
 from .ops.levels import AdmissibleSet
 
 __all__ = ["LVM_PARAMS", "PROBLEM_PARAMS", "CONV_OPERATORS", "HEAT_OPERATORS",
@@ -36,6 +36,8 @@ PROBLEM_PARAMS = {
     "fuller": ("nt", "state0", "terminal_weight", "terminal_frac"),
     "convolution": ("nt", "omega0"),
     "heat": ("nt", "gamma", "kappa", "Tout", "temp0", "tempT"),
+    "mixed": ("nt", "alpha", "beta", "gamma", "delta", "c1", "c2", "rho", "cmax",
+              "v1", "v2", "state0"),
 }
 
 # The operators of a convolution problem (attributes of
@@ -136,6 +138,9 @@ def objective_from_params(name: str, params: Mapping, *, device=None, dtype=None
                       state0=p["state0"], **kw)
     if name == "vanderpol":
         return VPOObj(nt, c=p["c"], state0=p["state0"], **kw)
+    if name == "mixed":
+        return LVMMixedObj(nt, **{k: float(p[k]) for k in PROBLEM_PARAMS[name][1:9]},
+                           v1=p["v1"], v2=p["v2"], state0=p["state0"], **kw)
     if name == "fuller":
         return FullerObj(nt, state0=p["state0"], terminal_weight=float(p["terminal_weight"]),
                          terminal_frac=float(p["terminal_frac"]), **kw)

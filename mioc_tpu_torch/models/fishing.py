@@ -3,6 +3,28 @@
 Counterpart of ``mioc_tpu.models.fishing`` (the reference's
 ``example_fishing.jl``): three binary SOS1 controls select a fishing mode;
 tracking objective ½‖y − 1‖².
+
+The sweeps round as the JAX package's compiled CPU sweeps do
+(:mod:`~mioc_tpu_torch.ops.xla_order`), at the default parameters (the
+products with α, β, γ, δ, c₁ and c₂ exact), so f, ∇f and the states equal
+the JAX package's bit for bit, on the CPU and on the card, for binary and
+relaxed controls alike:
+
+* the couplings ``v·w`` are :func:`~mioc_tpu_torch.ops.xla_order.const_dot`;
+* the Euler step is ``fma(τ, F, y)``; the running cost ``½·fma(d₀, d₀,
+  d₁²)`` with ``d = y − 1`` (XLA factors the halves), summed by
+  :func:`~mioc_tpu_torch.ops.xla_order.window_sum`;
+* the adjoint step is ``fma(τ, Fyᵀλ − (y − 1), λ)`` with ``Fyᵀλ =
+  (fma(S₀, λ₀, δy₁·λ₁), fma(S₁, λ₁, −βy₀·λ₀))``, ``S`` the bracketed
+  factors of F; a gradient entry is ``fma(c₂y₁·w₂, λ₁, c₁y₀·w₁·λ₀)``.
+
+The state is an ``(S, 2)`` tensor and both components step together
+(``S = fma(K1, y_swapped, K0) − A`` with ``K0 = (α, −γ)``, ``K1 = (−β,
+δ)``, ``A`` the couplings): 5 small ops a forward step, 11 an adjoint step.
+The tests hold the bits against the JAX package at nt = 32 … 1200
+(``tests/test_torch_tv_ode.py``).  Where the JAX scan's last unrolled body
+has 3 steps (nt = 60, 100) its last adjoint step can round otherwise: there
+∇f at the first step agrees to rounding only.
 """
 
 from __future__ import annotations
@@ -10,9 +32,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..objectives.ode import RowwiseODEObjective, _numpy_dtype, const_dot
-from ..ops.levels import bounded_sum_levels
 from .._device import resolve_dtype
+from ..objectives.ode import RowwiseODEObjective, _numpy_dtype
+from ..ops.levels import bounded_sum_levels
+from ..ops.xla_order import const_dot, fma, window_sum
 
 __all__ = ["LVMObj"]
 
@@ -49,6 +72,7 @@ class LVMObj(RowwiseODEObjective):
                          admissible=adm, device=device, dtype=dtype)
         self._v1 = torch.as_tensor(self.v1, device=self.device)
         self._v2 = torch.as_tensor(self.v2, device=self.device)
+        self._tau_t = torch.tensor(self.tau, dtype=self.dtype, device=self.device)
 
     # Dynamics (example_fishing.jl:56-76), written on the last axis so that
     # every function takes one row or any batch of rows.  ``a = c1·(u·v1)``
@@ -96,3 +120,50 @@ class LVMObj(RowwiseODEObjective):
 
     def Gu(self, y, u, i):
         return torch.zeros_like(u)
+
+    # -- sweeps in the JAX package's CPU rounding (module docstring) -----------
+    def _step_consts(self, xs):
+        a, c = self.step_terms(xs)  # (S, nt) each
+        A = torch.stack([a, c], dim=-1).transpose(0, 1).contiguous()  # (nt, S, 2)
+        K0 = torch.tensor([self.alpha, -self.gamma], dtype=xs.dtype, device=xs.device)
+        K1 = torch.tensor([-self.beta, self.delta], dtype=xs.dtype, device=xs.device)
+        return A, K0, K1
+
+    def _forward_batch(self, xs):
+        tau, nt = self.tau, self.nt
+        S = xs.shape[0]
+        A, K0, K1 = self._step_consts(xs)
+        y0 = self.state0.expand(S, self.ny)
+        y = y0
+        ys = []
+        for k in range(nt):
+            y = fma(y * (fma(K1, y.flip(-1), K0) - A[k]), self._tau_t, y)
+            ys.append(y)
+        ys = torch.stack(ys)  # (nt, S, ny)
+        yall = torch.cat([y0[None], ys]).transpose(0, 1)  # (S, nt+1, ny)
+        d0, d1 = yall[..., 0] - 1.0, yall[..., 1] - 1.0
+        return tau * window_sum(self._trap_w * (0.5 * fma(d0, d0, d1 * d1))), ys
+
+    def _adjoint_batch(self, xs, ys):
+        tau, nt = self.tau, self.nt
+        S = xs.shape[0]
+        A, K0, K1 = self._step_consts(xs)
+        K1f = K1.flip(-1)  # (δ, −β)
+        lam = -0.5 * tau * (ys[-1] - 1.0)  # ODEObjective.jl:165-166
+        lams = [lam]
+        for k in range(nt - 2, -1, -1):  # uses (y_{k+1}, u_{k+1}) = (ys[k], x[k+1])
+            y = ys[k]
+            yf = y.flip(-1)
+            s = fma(K1, yf, K0) - A[k + 1]
+            # (S₀λ₀ + (δy₁)λ₁, S₁λ₁ + (−βy₀)λ₀)
+            ft = fma(s, lam, (K1f * yf) * lam.flip(-1))
+            lam = fma(ft - (y - 1.0), self._tau_t, lam)
+            lams.append(lam)
+        lam = torch.stack(lams[::-1], dim=1)  # (S, nt, ny), 0-based k
+        ys0 = torch.cat([self.state0.expand(1, S, self.ny), ys[:-1]]).transpose(0, 1)
+        return self.df_rows(ys0, xs, lam), lam
+
+    def df_rows(self, ys0, x, lam):
+        a0 = (self.c1 * ys0[..., 0:1]) * self._v1
+        a1 = (self.c2 * ys0[..., 1:2]) * self._v2
+        return fma(a1, lam[..., 1:2], a0 * lam[..., 0:1])

@@ -15,9 +15,7 @@ auto-import, ``multi-trust.jl:15-20``), with the same names and presets:
 
 A factory is called as ``factory(nt=..., device=..., dtype=...)``: a plugin's
 objective takes ``device`` and ``dtype`` like the bundled ones (``None``
-meaning ``"cuda"`` and float64).  ``mixed`` keeps its name and preset but is
-not ported yet: building it raises ``NotImplementedError`` naming the
-ROADMAP.md item that ports it.
+meaning ``"cuda"`` and float64).
 """
 
 from __future__ import annotations
@@ -44,29 +42,18 @@ class ProblemSpec:
 
 _REGISTRY: dict = {}
 
-# Presets = multi-trust.jl:181-198, as in the JAX package.  A module of None
-# marks a problem that is not ported yet, with the ROADMAP.md item that
-# ports it.
+# Presets = multi-trust.jl:181-198, as in the JAX package.
 _BUILTINS = {
     "fishing": ("fishing", "LVMObj", dict(beta=1e-4, delta0=2.0, p=np.inf)),
     "doubletank": ("doubletank", "DTMObj", dict(beta=1e-5, delta0=2.0, p=np.inf)),
     "vanderpol": ("vanderpol", "VPOObj", dict(beta=0.1, delta0=1.0, p=np.inf)),
     "convolution": ("convolution", "ConvObj", dict(beta=1e-4, delta0=0.125, p=1)),
     "heat": ("heat", "HeatObj", dict(beta=1e-3, delta0=2.0, p=2)),
-    "mixed": (None, "ROADMAP.md queue A item 5 (mixed fishing and solvers/mixed.py, "
-                    "with solvers/continuous.py)",
-              dict(beta=1e-4, delta0=2.0, p=np.inf)),
+    "mixed": ("mixed_fishing", "LVMMixedObj", dict(beta=1e-4, delta0=2.0, p=np.inf)),
     # Not in the reference's main(): its .gitignore:7-11 withholds the fuller
     # example; preset chosen so the TRM resolves the chattering arc.
     "fuller": ("fuller", "FullerObj", dict(beta=1e-4, delta0=0.1, p=1)),
 }
-
-
-def _unported(name: str, item: str) -> Callable:
-    def factory(**_):
-        raise NotImplementedError(f'the problem "{name}" is not ported yet: {item}')
-
-    return factory
 
 
 def register(name: str, factory: Optional[Callable] = None, *,
@@ -87,10 +74,7 @@ def get(name: str) -> ProblemSpec:
     spec = _REGISTRY.get(name)
     if spec is None and name in _BUILTINS:
         mod, cls, preset = _BUILTINS[name]
-        if mod is None:
-            factory = _unported(name, cls)
-        else:
-            factory = getattr(importlib.import_module(f".{mod}", __package__), cls)
+        factory = getattr(importlib.import_module(f".{mod}", __package__), cls)
         spec = ProblemSpec(name, factory, dict(preset))
         _REGISTRY[name] = spec
     if spec is None:

@@ -26,6 +26,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..utils.checks import check_nan
+
 __all__ = ["Objective", "LazyObjective", "AAOObjective"]
 
 
@@ -105,14 +107,14 @@ class LazyObjective(Objective):
         """Evaluate at ``x``; counts but does not cache (AbstractObjective.jl:74-78)."""
         self.f_evals += 1
         fval, _ = self.eval_f_impl(self.as_control(x), cache=False)
-        return float(fval)
+        return check_nan(float(fval), "f")
 
     def eval_f_(self) -> float:
         """Evaluate at ``self.x``; caches state and invalidates ``df`` (:81-91)."""
         self.f_evals += 1
         fval, aux = self.eval_f_impl(self.x, cache=True)
         self._aux = aux
-        self.f = float(fval)
+        self.f = check_nan(float(fval), "f")
         self.df_valid = False
         return self.f
 
@@ -120,7 +122,7 @@ class LazyObjective(Objective):
         """Gradient at ``self.x``; assumes ``eval_f_`` ran for this ``x`` (:94-102)."""
         if not self.df_valid:
             self.df_evals += 1
-            self.df = self.eval_df_impl()
+            self.df = check_nan(self.eval_df_impl(), "df")
             self.df_valid = True
 
     def eval_fdf_(self) -> float:
@@ -138,12 +140,12 @@ class AAOObjective(Objective):
     def eval_f(self, x) -> float:
         self.fdf_evals += 1
         fval, _ = self.eval_fdf_impl(self.as_control(x), want_df=False)
-        return float(fval)
+        return check_nan(float(fval), "f")
 
     def eval_f_(self) -> float:
         fval, _ = self.eval_fdf_impl(self.x, want_df=False)
         self.fdf_evals += 1
-        self.f = float(fval)
+        self.f = check_nan(float(fval), "f")
         self.df_valid = False
         return self.f
 
@@ -151,13 +153,13 @@ class AAOObjective(Objective):
         if not self.df_valid:
             self.fdf_evals += 1
             _, df = self.eval_fdf_impl(self.x, want_df=True)
-            self.df = df
+            self.df = check_nan(df, "df")
             self.df_valid = True
 
     def eval_fdf_(self) -> float:
         self.fdf_evals += 1
         fval, df = self.eval_fdf_impl(self.x, want_df=True)
-        self.f = float(fval)
-        self.df = df
+        self.f = check_nan(float(fval), "f")
+        self.df = check_nan(df, "df")
         self.df_valid = True
         return self.f

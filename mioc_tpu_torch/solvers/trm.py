@@ -16,6 +16,10 @@ The solve runs where the objective lives (``obj.device``).  The accept/halve/
 stop control flow stays on the host; on the card every DP build launches the
 ``dp_build`` kernel and every chase the ``chase`` kernel (through
 ``ops.bellman.build_tables``/``backtrack``), the ODE sweeps are PyTorch ops.
+``dp_backend="temporal"`` builds with the banded temporal DP
+(:func:`~mioc_tpu_torch.parallel.temporal.temporal_tables`, tensor code) and
+chases with :func:`~mioc_tpu_torch.parallel.temporal.temporal_backtrack`
+instead, on either device.
 
 Documented divergences from the reference (all edge-path only, kept from the
 JAX package):
@@ -42,6 +46,7 @@ import torch
 from ..ops.bellman import backtrack, build_tables, max_budget_use, stage_tables
 from ..ops.levels import jump_cost_table
 from ..ops.tv import tv_p
+from ..utils.checks import check_nan
 from ..utils.init import rand_func
 from ..utils.logging import IterationLog
 
@@ -50,7 +55,6 @@ __all__ = ["TRMParameters", "TRMResult", "trm_solve", "TRM", "dp_route"]
 # DP backends of the JAX package that this port does not have yet, with the
 # ROADMAP.md item (queue A) that ports them.
 _UNPORTED_BACKENDS = {
-    "temporal": "queue A item 6 (parallel/: temporal.py)",
     "sharded": "queue A item 6 (parallel/: shard_dp.py)",
 }
 
@@ -65,17 +69,20 @@ def dp_route(dp_backend: Optional[str], use_pallas: Optional[bool], device) -> s
     * ``"scan"`` or ``False``: the plain versions, which the CPU runs
       (returns ``"scan"``); on the card they raise ``ValueError``, since no
       solve there runs them;
-    * ``"temporal"``, ``"sharded"``: ``NotImplementedError`` naming their
-      ROADMAP.md item; any other name: ``ValueError``.
+    * ``"temporal"``: the banded temporal DP on either device (returns
+      ``"temporal"``);
+    * ``"sharded"``: ``NotImplementedError`` naming its ROADMAP.md item; any
+      other name: ``ValueError``.
 
-    Both routes compute the same tables and chases, bit for bit."""
+    All routes give the same chases; ``"pallas"`` and ``"scan"`` the same
+    tables, bit for bit."""
     name = dp_backend
     if name is None:
         name = "scan" if use_pallas is False else "pallas"
     if name in _UNPORTED_BACKENDS:
         raise NotImplementedError(f"dp_backend={name!r} is not ported yet: ROADMAP.md "
                                   f"{_UNPORTED_BACKENDS[name]}")
-    if name not in ("pallas", "scan"):
+    if name not in ("pallas", "scan", "temporal"):
         raise ValueError(f"Unknown dp_backend {name!r}")
     if name == "scan" and torch.device(device).type == "cuda":
         raise ValueError("dp_backend='scan' (use_pallas=False) selects the plain versions, "
@@ -91,8 +98,9 @@ class TRMParameters:
     choose the DP route by :func:`dp_route`: ``"pallas"``, ``True`` or
     neither run the CUDA kernels on the card and the plain versions on the
     CPU; ``"scan"`` or ``False`` the plain versions, on the CPU only;
-    ``"temporal"`` and ``"sharded"`` raise ``NotImplementedError``.  The
-    difference from ``mioc_tpu``'s: there is no ``mesh``.
+    ``"temporal"`` the banded temporal DP (``parallel.temporal``);
+    ``"sharded"`` raises ``NotImplementedError``.  The difference from
+    ``mioc_tpu``'s: there is no ``mesh``.
     """
 
     beta: float = 0.001      # weight of the TV_p term (β)
@@ -142,7 +150,7 @@ def trm_solve(obj, par: TRMParameters = None, x0=None, seed: Optional[int] = Non
     """Run the TRM on ``obj`` (a LazyObjective with an admissible set) on
     ``obj.device``."""
     par = par or TRMParameters()
-    dp_route(par.dp_backend, par.use_pallas, obj.device)
+    route = dp_route(par.dp_backend, par.use_pallas, obj.device)
     nt, dt = obj.nt, obj.tau
     adm = obj.admissible
     if adm is None or adm.L == 0:
@@ -175,6 +183,22 @@ def trm_solve(obj, par: TRMParameters = None, x0=None, seed: Optional[int] = Non
 
     B = int(math.floor(par.delta0 / dt))
     smax = max_budget_use(adm.levels)
+    if route == "temporal":
+        from ..parallel.temporal import temporal_backtrack, temporal_tables
+
+        def dp_build(stage, btilde):
+            phis = temporal_tables(stage, btilde, jump, B, smax)
+            return (check_nan(phis, "the temporal DP tables"),)
+
+        def dp_backtrack(tables, btilde, B_new):
+            return temporal_backtrack(tables[0], btilde, jump, levels, B_new)
+    else:
+        def dp_build(stage, btilde):
+            U, phi0 = build_tables(stage, btilde, jump, B, smax)
+            return U, check_nan(phi0, "the DP table phi0")
+
+        def dp_backtrack(tables, btilde, B_new):
+            return backtrack(*tables, btilde, levels, B_new)
 
     timers = {"dp": 0.0, "backtrack": 0.0, "f": 0.0, "df": 0.0}
     log = IterationLog(enabled=par.log, metrics_path=par.metrics_path)
@@ -217,16 +241,16 @@ def trm_solve(obj, par: TRMParameters = None, x0=None, seed: Optional[int] = Non
             while ared < par.sigma * pred and k <= par.kmax:
                 if halved:
                     B_new = int(math.floor(delta_k / dt))
-                    u, _ = timed("backtrack", backtrack, *tables, btilde, levels, B_new)
+                    u, _ = timed("backtrack", dp_backtrack, tables, btilde, B_new)
                 else:
                     t0 = time.perf_counter()
                     stage, btilde = stage_tables(grad, u_old, levels, dt)
-                    tables = build_tables(stage, btilde, jump, B, smax)
+                    tables = dp_build(stage, btilde)
                     if cuda:
                         torch.cuda.synchronize(dev)
                     timers["dp"] += time.perf_counter() - t0
                     dp_builds += 1
-                    u, _ = timed("backtrack", backtrack, *tables, btilde, levels, B)
+                    u, _ = timed("backtrack", dp_backtrack, tables, btilde, B)
 
                 if par.debug_checks:
                     from ..utils.checks import assert_admissible, check_budget

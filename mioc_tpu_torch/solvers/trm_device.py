@@ -166,9 +166,12 @@ def make_device_trm(obj, par, use_pallas: Optional[bool] = None,
     fails, so results are bit-identical to 1).
 
     ``use_pallas`` and ``dp_backend`` (default: ``par``'s) choose the DP
-    route by :func:`~.trm.dp_route`, in the JAX package's argument order;
-    ``dp_backend="sharded"``, ``"temporal"`` and ``mesh`` are not ported and
-    raise ``NotImplementedError``."""
+    route by :func:`~.trm.dp_route`, in the JAX package's argument order.
+    ``dp_backend="temporal"`` runs the ordinary route here, as the JAX
+    package's ``make_device_trm`` does (it special-cases only
+    ``"sharded"``): the kernels on the card, the plain versions on the CPU.
+    ``dp_backend="sharded"`` and ``mesh`` are not ported and raise
+    ``NotImplementedError``."""
     if mesh is not None:
         raise NotImplementedError(f"device meshes are not ported yet: {_UNPORTED}")
     dp_route(par.dp_backend if dp_backend is None else dp_backend,

@@ -1,7 +1,7 @@
 """Starting controls, the Julia RNG replica, logging, checks, ``.dat`` IO and
 checkpoints."""
 
-from .checks import assert_admissible, check_budget
+from .checks import assert_admissible, check_budget, enable_nan_checks
 from .init import rand_func, rand_func_cont, rand_func_int
 from .io import import_from_latex_format, load_checkpoint, save_checkpoint, save_latex_format
 from .julia_rng import JuliaMersenneTwister
@@ -12,6 +12,7 @@ __all__ = [
     "JuliaMersenneTwister",
     "assert_admissible",
     "check_budget",
+    "enable_nan_checks",
     "import_from_latex_format",
     "load_checkpoint",
     "rand_func",

@@ -70,10 +70,9 @@ def test_cli_multistart_and_metrics(capsys, tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["mixed", "--n", "32", "--no-plot"], "item 5"),
     (["heat", "--n", "32", "--device-loop"], "item 7"),
     (["fishing", "--n", "32"], "item 7"),
-    (["fishing", "--n", "32", "--no-plot", "--dp-backend", "temporal"], "item 6"),
+    (["fishing", "--n", "32", "--no-plot", "--dp-backend", "sharded"], "item 6"),
 ])
 def test_unported_parts_raise(argv, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue A {item}"):
@@ -83,12 +82,15 @@ def test_unported_parts_raise(argv, item):
 @pytest.mark.parametrize("argv", [["fishing", "--n", "32"],
                                   ["fishing", "--n", "32", "--multistart", "1"],
                                   ["fishing", "--n", "32", "--device-loop"],
-                                  ["fishing", "--n", "32", "--device-loop", "--multistart", "2"]],
-                         ids=["single", "multistart-1", "device-loop", "device-multistart"])
+                                  ["fishing", "--n", "32", "--device-loop", "--multistart", "2"],
+                                  ["mixed", "--n", "32"],
+                                  ["mixed", "--n", "32", "--multistart", "2"]],
+                         ids=["single", "multistart-1", "device-loop", "device-multistart",
+                              "mixed", "mixed-multistart-2"])
 def test_runs_the_jax_cli_plots_raise_before_solving(monkeypatch, argv):
     """Where the JAX CLI would plot (it holds an objective: a single solve,
-    any device-loop run), a run without --no-plot raises naming item 7
-    before any objective is built."""
+    any device-loop run, a mixed solve), a run without --no-plot raises
+    naming item 7 before any objective is built."""
     monkeypatch.setattr(cli, "build_objective", lambda *a, **k: pytest.fail("solved"))
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 7"):
         cli.main(argv + ["--no-log", "--device", "cpu"])

@@ -771,3 +771,75 @@ def test_new_kernels_raise_on_a_refused_launch(cuda_device, monkeypatch):
         kc.chase_trials(U, phi0, btilde, torch.zeros((2, 2), dtype=torch.int32,
                                                      device=cuda_device))
     assert (tb.build_tables_batched_plain.calls, tb.backtrack_trials_plain.calls) == calls
+
+
+# ------------------------------------------- temporal DP, mixed solve, fma
+
+
+@pytest.mark.parametrize("name,levels,nt,B", [
+    ("sos1", lambda: bounded_sum_levels([[0, 1]] * 3, 1, 1), 300, 40),
+    ("heat", lambda: product_levels([list(range(6))] * 2), 60, 20),
+])
+def test_temporal_tables_bit_equal_cpu(cuda_device, name, levels, nt, B):
+    """The temporal DP's tables on the card have the CPU's bits, and its
+    chase the CPU's levels at every halving cap."""
+    from mioc_tpu_torch.parallel import temporal as tt
+
+    adm = levels()
+    stage, btilde, jump, smax = _tables(adm, nt, B, torch.float64, cuda_device, seed=5)
+    phis = tt.temporal_tables(stage, btilde, jump, B, smax)
+    ref = tt.temporal_tables(stage.cpu(), btilde.cpu(), jump.cpu(), B, smax)
+    assert phis.device.type == "cuda"
+    assert torch.equal(phis.cpu().view(torch.int64), ref.view(torch.int64))
+    for cap in (B, B // 2, B // 4, 0, -1):
+        _, i_k = tt.temporal_backtrack(phis, btilde, jump, adm.levels, cap)
+        _, i_c = tt.temporal_backtrack(ref, btilde.cpu(), jump.cpu(), adm.levels, cap)
+        assert i_k.device.type == "cuda" and torch.equal(i_k.cpu(), i_c), cap
+
+
+def test_fma_on_the_card_is_exact(cuda_device):
+    from mioc_tpu_torch.ops import xla_order
+
+    rng = np.random.default_rng(3)
+    a, b, c = (torch.as_tensor(rng.normal(size=4099) * s, device=cuda_device)
+               for s in (1.0, 1e-2, 1.0))
+    want = xla_order.fma_exact(a.cpu(), b.cpu(), c.cpu())
+    assert torch.equal(xla_order.fma_exact(a, b, c).cpu(), want)
+    assert torch.equal(xla_order.fma(a, b, c).cpu(), want)
+    assert torch.equal(xla_order.window_sum(a.reshape(1, -1)).cpu(),
+                       xla_order.window_sum(a.cpu().reshape(1, -1)))
+
+
+def test_small_mixed_solve_equals_cpu(cuda_device):
+    """mixed_solve at nt=48, 2 rounds: the card's rounds, history and
+    control equal the CPU's bit for bit, through dp_build and chase."""
+    from mioc_tpu_torch.models import LVMMixedObj
+    from mioc_tpu_torch.ops.backtrack_cuda import chase
+    from mioc_tpu_torch.ops.bellman_cuda import dp_build
+    from mioc_tpu_torch.solvers.mixed import MixedParameters, mixed_solve
+    from mioc_tpu_torch.solvers.trm import TRMParameters
+
+    par = MixedParameters(trm=TRMParameters(beta=1e-4, delta0=2.0, p=np.inf), rounds=2)
+    n_b, n_c = dp_build.launches, chase.launches
+    res = mixed_solve(LVMMixedObj(nt=48, device=cuda_device), par, seed=0)
+    assert dp_build.launches > n_b and chase.launches > n_c
+    ref = mixed_solve(LVMMixedObj(nt=48, device="cpu"), par, seed=0)
+    assert (res.rounds, res.converged) == (ref.rounds, ref.converged)
+    assert res.history == ref.history
+    np.testing.assert_array_equal(res.x, ref.x)
+
+
+def test_temporal_route_solve_on_the_card(cuda_device):
+    from mioc_tpu_torch.models import LVMObj
+    from mioc_tpu_torch.ops.backtrack_cuda import chase
+    from mioc_tpu_torch.ops.bellman_cuda import dp_build
+    from mioc_tpu_torch.solvers.trm import TRMParameters, trm_solve
+
+    par = TRMParameters(beta=1e-3, p=1, delta0=0.3, dp_backend="temporal")
+    n_b, n_c = dp_build.launches, chase.launches
+    res = trm_solve(LVMObj(nt=120, device=cuda_device), par, seed=5)
+    assert (dp_build.launches, chase.launches) == (n_b, n_c)
+    ref = trm_solve(LVMObj(nt=120, device="cpu"), par, seed=5)
+    assert (res.iterations, res.inner_steps) == (ref.iterations, ref.inner_steps)
+    np.testing.assert_array_equal(res.u, ref.u)
+    np.testing.assert_allclose(res.J, ref.J, rtol=1e-12)

@@ -50,7 +50,8 @@ def test_port_modules_found():
             "fem/_native_triangle.py", "fem/mesh.py", "fem/fe.py", "fem/assembly.py",
             "fem/solve.py", "ops/detred.py", "ops/rows.py", "objectives/pde.py",
             "models/heat.py", "fem/sparse_device.py", "fem/banded_device.py",
-            "fem/multigrid.py"} <= names
+            "fem/multigrid.py", "models/mixed_fishing.py", "solvers/continuous.py",
+            "solvers/mixed.py", "parallel/temporal.py", "ops/xla_order.py"} <= names
     assert (ROOT / "chip_smoke.py").exists()
 
 

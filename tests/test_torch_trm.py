@@ -131,7 +131,7 @@ def test_dp_route_rule():
         dp_route("nope", None, cpu)
 
 
-@pytest.mark.parametrize("backend", ["temporal", "sharded"])
+@pytest.mark.parametrize("backend", ["sharded"])
 def test_unported_backends_raise(backend):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trm_solve(LVMObj(nt=20, device="cpu"), TRMParameters(dp_backend=backend))

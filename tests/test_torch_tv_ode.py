@@ -1,11 +1,12 @@
 """Port vs JAX package: TV functional and the fishing ODE objective.
 
-f and ∇f agree with ``mioc_tpu`` to rounding at float64 (rtol 1e-12): the
-port's sums are taken in PyTorch's order and its Euler steps without the
-fused multiply-adds XLA emits, so the last bits can differ.  ∇f is compared
-with an absolute floor of 1e-12 times its largest entry besides: an entry
-that passes near zero carries the rounding of the large terms it cancels
-(measured at nt=1024: 1.5e-12 relative on one small entry).
+f and ∇f agree with ``mioc_tpu`` to rounding at float64 (rtol 1e-12); ∇f
+is compared with an absolute floor of 1e-12 times its largest entry
+besides: an entry that passes near zero carries the rounding of the large
+terms it cancels.  Since the fishing sweeps round as XLA's CPU code does
+(fused multiply-adds, windowed sums: ``ops/xla_order.py``), at the default
+parameters f, ∇f, the states and the adjoints are also held bit-equal to
+the JAX package's, for admissible and relaxed controls.
 """
 
 import numpy as np
@@ -69,6 +70,20 @@ def test_fishing_f_df_match_jax(nt, seed):
     assert (t.f_evals, t.df_evals) == (j.f_evals, j.df_evals) == (1, 1)
 
 
+@pytest.mark.parametrize("nt", [32, 48, 64, 120, 240, 256, 300, 1024, 1200])
+def test_fishing_sweeps_have_the_jax_bits(nt):
+    j, t = JaxLVM(nt=nt), LVMObj(nt=nt, device="cpu")
+    for seed in range(3):
+        x = (rand_func(j, seed=seed) if seed != 1
+             else np.random.default_rng(nt).random((nt, 3)))  # a relaxed control
+        fj, dfj = _f_df(j, x)
+        ft, dft = _f_df(t, x)
+        assert ft == fj
+        for a, b in ((dft, dfj), (t.state.numpy(), j.state), (t.adjoint.numpy(), j.adjoint)):
+            np.testing.assert_array_equal(np.asarray(a).view(np.int64),
+                                          np.asarray(b).view(np.int64))
+
+
 def test_fishing_carried_across_nondefault_params():
     j = JaxLVM(nt=200, alpha=1.1, beta=0.9, gamma=1.05, delta=0.95, c1=0.8,
                c2=1.2, v1=(0.3, 0.1, 0.05), v2=(0.05, 0.25, 0.15),
@@ -108,9 +123,12 @@ def test_gradient_finite_differences():
 
 
 class _AutodiffLVM(LVMObj):
-    """Fishing with only F and G: the Jacobians, Fyᵀλ and the per-step
-    hooks fall back to ODEObjective's torch.func defaults."""
+    """Fishing with only F and G: the Jacobians, Fyᵀλ, the per-step hooks
+    and the sweeps that call them fall back to ODEObjective's torch.func
+    defaults (LVMObj's own sweeps round as XLA's CPU code)."""
 
+    _forward_batch = ODEObjective._forward_batch
+    _adjoint_batch = ODEObjective._adjoint_batch
     Fy = ODEObjective.Fy
     FyT_lam = ODEObjective.FyT_lam
     Fu = ODEObjective.Fu
