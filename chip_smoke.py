@@ -64,8 +64,11 @@ Run from the root of a checkout.  It builds the CUDA kernels from
    the tables bit-equal to the same function's on the CPU, with ms per
    ``temporal_tables``/``temporal_backtrack`` beside the kernels' ms and the
    peak device memory; and the fishing preset host loop with
-   ``dp_backend="temporal"`` from seed 0: the iterations, inner steps and u
-   of (a), J to rtol 1e-10, with no kernel launched; then ``continuous``:
+   ``dp_backend="temporal"`` from seed 0, capped at ``TEMPORAL_MAXITER``
+   outer iterations (the whole solve takes ~40–50 s, ~20 s of it the
+   temporal route's chases): the iterations, inner steps and u of
+   the kernel route at the same cap, J to rtol 1e-10, with no kernel
+   launched; then ``continuous``:
    ``SteepestDescent(ArmijoLS(sigma=1e-3), maxiter=8)`` on ``LVMObj(nt=1024)``
    from x = 0.5 and ``NonlinCG(WolfeLS())``, ``SteepestDescent(WolfeLS())``
    on a 12×1 quadratic on the card: the JAX package's f (rtol 1e-12),
@@ -155,6 +158,40 @@ Run from the root of a checkout.  It builds the CUDA kernels from
    each large path's time goes, and last (a profiler trace slows every
    later launch) the kernels per fine application and per sweep step
    (``profile_kernels.large_sweep_section``).
+
+9. drives the multi-rank half of ``parallel/`` (``torch.distributed``),
+   after the fishing multistarts: ``world_of_one``, the fishing preset host
+   loop with ``dp_backend="sharded"`` and no mesh in this process (a world
+   of one over NCCL): the (a) result through no ``dp_build`` and one
+   ``chase`` per inner step; then a world of ``WORLD`` = 4 ranks spawned on
+   this one card (gloo, which ``init_multihost`` picks for ranks that share
+   a card; joined under ``WORLD_TIMEOUT``), each rank running
+   ``sharded_tables`` (``build_tables_sharded`` at fishing on 1×2 and 1×4,
+   heat500 on 1×4: cropped to L bit-equal to ``dp_build``'s and the plain
+   build's, the padded rows inert, ``chase`` on the padded tables equal to
+   ``chase`` on ``dp_build``'s at B and every halving cap; ms per build and
+   µs per collective), ``sharded_host`` (the fishing and heat500 host loops
+   on a 1×4 mesh capped at ``SHARDED_MAXITER`` — one collective per DP
+   step, ~4.2 ms each over gloo here — equal to the kernel route at the
+   same cap, through no ``dp_build`` and one ``chase`` per inner step),
+   ``mesh_multistart`` (the 32 starts on 4×1: the JAX constants and this
+   process's multistart field for field, through ``dp_build_batched`` and
+   ``chase_batched``; 8 starts on 2×2 sharded and speculative, capped at
+   ``MESH_SPEC_MAXITER``: the world-of-one run's fields, through
+   ``chase_trials`` and no build kernel), ``ode_step_mesh``
+   (``make_ode_trm_step`` at S=8 on 4×1 and 2×2, bit-equal to the
+   world-of-one step) and ``temporal_sharded`` (fishing and heat200,
+   bit-equal to ``temporal_tables``); then ``cli_torchrun``,
+   ``torch.distributed.run --standalone --nproc-per-node 4 -m
+   mioc_tpu_torch.cli fishing --device-loop --multistart 32`` (nt=1024):
+   rank 0's one JSON line equals the one-process CLI's, which is the best
+   start of the multistart (c), and its J is the least JAX constant; and,
+   after the CLI runs, ``plots``: ``fuller --n 1024`` and ``heat --n 60
+   --device-loop`` without ``--no-plot`` in a temporary directory (the
+   plot, the ``.dat`` files and the animation; without matplotlib, the
+   solve's line and then the ``ModuleNotFoundError`` the JAX CLI raises).
+   The walls of the 4-rank phases measure four processes contending for
+   one card, not scaling.
 
 Each finding is printed as one JSON object per line; the ``kernels`` line
 comes next to last and the last line is
@@ -1780,6 +1817,7 @@ MIXED240_SHAPE = ("mixed240", 240, 40, ("bounded", [[0, 1]] * 3), (math.inf, 1e-
 # The temporal DP's shapes: the fishing preset, heat500 and heat200 (name,
 # nt, B, level set, (p, beta, tau)).
 TEMPORAL_SHAPES = (SHAPES[0], HEAT_SHAPE, LARGE_SHAPE)
+TEMPORAL_MAXITER = 10
 
 
 def quadratic(torch, n=12, seed=0):
@@ -1953,11 +1991,11 @@ def mixed_phase(torch, kernel_ms: dict) -> dict:
     return out
 
 
-def temporal_phase(torch, host) -> dict:
+def temporal_phase(torch) -> dict:
     """The banded temporal DP on the card at the fishing preset, heat500 and
     heat200 shapes against dp_build + chase and against its own tables on
     the CPU; then the fishing preset host loop on the temporal route against
-    ``host`` (host_path's kernel-route solve)."""
+    the kernel route's, both capped at ``TEMPORAL_MAXITER``."""
     from mioc_tpu_torch.models import LVMObj
     from mioc_tpu_torch.ops import levels as lv
     from mioc_tpu_torch.ops.backtrack_cuda import chase
@@ -2008,10 +2046,14 @@ def temporal_phase(torch, host) -> dict:
             "temporal_tables_ms": t_ms, "temporal_backtrack_ms": bt_ms,
             "dp_build_ms": b_ms, "chase_ms": c_ms, "peak_device_memory_mb": peak / 1e6,
             "phis_mb": phis.numel() * 8 / 1e6}
-    # The fishing preset host loop on the temporal route, from host_path's start.
+    # The fishing preset host loop on the temporal route, from host_path's
+    # start, capped; the kernel route at the same cap is its reference.
+    host = trm_solve(LVMObj(nt=1024), TRMParameters(**PRESET, maxiter=TEMPORAL_MAXITER),
+                     seed=0)
     read = zero_counts(torch)
     t0 = time.perf_counter()
-    res = trm_solve(LVMObj(nt=1024), TRMParameters(**PRESET, dp_backend="temporal"), seed=0)
+    res = trm_solve(LVMObj(nt=1024), TRMParameters(**PRESET, dp_backend="temporal",
+                                                   maxiter=TEMPORAL_MAXITER), seed=0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, plain_calls = read()
@@ -2032,6 +2074,478 @@ def temporal_phase(torch, host) -> dict:
     require(abs(res.J - host.J) <= 1e-10 * abs(host.J), "temporal host loop: J (rtol 1e-10)")
     require(not any(launches.values()) and not any(plain_calls.values()),
             f"temporal host loop: no kernel and no plain DP: {launches} {plain_calls}")
+    return out
+
+
+# The multi-rank paths (parallel/ on torch.distributed).  Four ranks share
+# the one card, so they talk over gloo (NCCL refuses two ranks on one GPU),
+# and their walls measure four processes contending for one card, not
+# scaling.  A sharded build makes one collective per DP step, ~4.2 ms over
+# gloo between four ranks here (``sharded_tables``' gather_us): the
+# fishing host loop on a 1×4 mesh would spend ~185 s in its 41 builds.  So
+# the 4-rank host loops are capped (``SHARDED_MAXITER``) and held against
+# the kernel route at the same cap; the whole fishing solve on the sharded
+# route runs in the world of one.
+WORLD = 4
+WORLD_TIMEOUT = 420
+SHARDED_MAXITER = {"fishing": 2, "heat": 2}
+MESH_SPEC_STARTS = 8
+MESH_SPEC_MAXITER = 2
+# nt is the CLI's default, 1024: torchrun's own parser (torch 2.11 on Python
+# 3.12.3) takes a script's "--n" for an ambiguous abbreviation of its options.
+TORCHRUN_ARGS = ["fishing", "--device-loop", "--multistart", str(N_STARTS),
+                 "--seed", "0", "--no-plot", "--no-log"]
+SHARDED_SHAPES = (  # name, nt, B, levels, (p, beta, tau), level-axis sizes
+    (*SHAPES[0], (2, 4)),
+    ("heat500", HEAT_NT, 100, ("product", [list(range(6))] * 2),
+     (2, 1e-3, 10.0 / HEAT_NT), (4,)),
+)
+TEMPORAL_SHARDED = (SHAPES[0], ("heat200", 200, 40, ("product", [list(range(6))] * 2),
+                                (2, 1e-3, 10.0 / 200)))
+
+
+def _dp_inputs(torch, nt, B, level_spec, preset, seed):
+    from mioc_tpu_torch.ops import levels as lv
+    from mioc_tpu_torch.ops.bellman import max_budget_use, stage_tables
+
+    kind, V = level_spec
+    adm = lv.bounded_sum_levels(V, 1, 1) if kind == "bounded" else lv.product_levels(V)
+    p, beta, tau = preset
+    rng = np.random.default_rng(seed)
+    dev = torch.device(DEVICE)
+    grad = torch.as_tensor(rng.normal(size=(nt, adm.M)), dtype=torch.float64, device=dev)
+    u_old = torch.as_tensor(adm.levels[rng.integers(0, adm.L, size=nt)],
+                            dtype=torch.float64, device=dev)
+    jump = torch.as_tensor(lv.jump_cost_table(adm.levels, p, beta=beta),
+                           dtype=torch.float64, device=dev)
+    stage, btilde = stage_tables(grad, u_old, adm.levels, tau)
+    return adm, stage, btilde, jump, max_budget_use(adm.levels)
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def world_sharded_tables(torch, rank) -> dict:
+    """1: the level-sharded tables at fishing (level 2 and 4) and heat500
+    (level 4), cropped to L, bit-equal to dp_build's and to the plain
+    build's on the card; ``chase`` on the padded tables equal to ``chase``
+    on dp_build's at B and every halving cap; ms per build and µs per
+    collective of one step's packed planes."""
+    from mioc_tpu_torch.ops.backtrack_cuda import chase
+    from mioc_tpu_torch.ops.bellman import build_tables_plain
+    from mioc_tpu_torch.ops.bellman_cuda import dp_build
+    from mioc_tpu_torch.parallel import build_tables_sharded, make_device_mesh
+    from mioc_tpu_torch.parallel.shard_dp import pad_level_axis
+
+    out = {}
+    for seed, (name, nt, B, spec, preset, sizes) in enumerate(SHARDED_SHAPES):
+        adm, stage, btilde, jump, smax = _dp_inputs(torch, nt, B, spec, preset, 60 + seed)
+        Uk, phik = dp_build(stage, btilde, jump, B, smax)
+        Up, phip = build_tables_plain(stage, btilde, jump, B, smax)
+        caps = [c for c in sorted(set(schedule(2.0, preset[2]) + [B]), reverse=True) if c <= B]
+        for D in sizes:
+            mesh = make_device_mesh(batch=1, level=D, devices=list(range(D)))
+            if rank >= D:
+                continue
+            (U, phi0), build_s = _timed(torch, lambda: build_tables_sharded(
+                stage, btilde, jump, B, smax, mesh))
+            bt_p = pad_level_axis(stage, btilde, jump, D, B)[1]
+            L = adm.L
+            part = torch.zeros((2, 1, U.shape[1], B + 1), dtype=torch.float64,
+                               device=stage.device)
+            _, gather_s = _timed(torch, lambda: [mesh.all_gather(part, "level")
+                                                 for _ in range(100)])
+            out[f"{name}_level{D}"] = {
+                "nt": nt, "B": B, "L": L, "Lp": int(U.shape[1]), "D": D,
+                "U_equal_dp_build": torch.equal(U[:, :L], Uk),
+                "U_equal_plain": torch.equal(U[:, :L], Up),
+                "phi0_bits_equal_dp_build": torch.equal(bits(phi0[:L], torch), bits(phik, torch)),
+                "phi0_bits_equal_plain": torch.equal(bits(phi0[:L], torch), bits(phip, torch)),
+                "padded_rows_inert": bool(torch.isinf(phi0[L:]).all()) and not bool(U[:, L:].any()),
+                "caps": caps,
+                "chases_equal": all(torch.equal(chase(U, phi0, bt_p, c), chase(Uk, phik, btilde, c))
+                                    for c in caps),
+                "build_ms": 1e3 * build_s, "gather_us": 1e6 * gather_s / 100,
+                "build_us_per_step": 1e6 * build_s / (nt - 1)}
+    return out
+
+
+def world_sharded_host(torch, rank) -> dict:
+    """2: the fishing preset and heat nt=500 host loops on the sharded route
+    over a 1×4 mesh, capped at ``SHARDED_MAXITER``."""
+    from mioc_tpu_torch.models import HeatObj, LVMObj
+    from mioc_tpu_torch.parallel import make_device_mesh
+    from mioc_tpu_torch.solvers.trm import TRMParameters, trm_solve
+
+    mesh = make_device_mesh(batch=1, level=WORLD)
+    out = {}
+    for name, make, preset in (("fishing", lambda: LVMObj(nt=1024), PRESET),
+                               ("heat", lambda: HeatObj(nt=HEAT_NT), HEAT_PRESET)):
+        obj = make()
+        par = TRMParameters(**preset, maxiter=SHARDED_MAXITER[name], dp_backend="sharded",
+                            mesh=mesh)
+        read = zero_counts(torch)
+        res, wall = _timed(torch, lambda: trm_solve(obj, par, seed=0))
+        launches, plain_calls = read()
+        out[name] = {"J": res.J, "iterations": res.iterations, "inner_steps": res.inner_steps,
+                     "dp_builds": res.dp_builds, "u": res.u.tolist(), "launches": launches,
+                     "plain_calls_on_card": plain_calls, "wall_s": wall,
+                     "timings_s": res.timings}
+    return out
+
+
+def _summary(res) -> dict:
+    return {f: np.asarray(getattr(res, f)).tolist() for f in res._fields}
+
+
+def world_mesh_multistart(torch, rank) -> dict:
+    """3: the 32 fishing starts on a 4×1 mesh (sequential), then the first 8
+    on a 2×2 mesh, sharded and speculative, capped at
+    ``MESH_SPEC_MAXITER``."""
+    from mioc_tpu_torch.models import LVMObj
+    from mioc_tpu_torch.parallel import make_device_mesh
+    from mioc_tpu_torch.solvers.trm import TRMParameters
+    from mioc_tpu_torch.solvers.trm_device import multistart_solve_device
+    from mioc_tpu_torch.utils.init import rand_func
+
+    x0s = np.stack([rand_func(LVMObj(nt=1024), seed=s) for s in range(N_STARTS)])
+    out = {}
+    for name, shape, kw, x, par in (
+            ("4x1_sequential", (4, 1), dict(speculative=False), x0s, TRMParameters(**PRESET)),
+            ("2x2_sharded_speculative", (2, 2), dict(speculative=True, dp_backend="sharded"),
+             x0s[:MESH_SPEC_STARTS], TRMParameters(**PRESET, maxiter=MESH_SPEC_MAXITER))):
+        mesh = make_device_mesh(*shape)
+        read = zero_counts(torch)
+        res, wall = _timed(torch, lambda: multistart_solve_device(LVMObj(nt=1024), par, x,
+                                                                  mesh=mesh, **kw))
+        launches, plain_calls = read()
+        out[name] = {**_summary(res), "launches": launches, "plain_calls_on_card": plain_calls,
+                     "wall_s": wall}
+    return out
+
+
+def _step_starts(torch):
+    from mioc_tpu_torch.models import LVMObj
+    from mioc_tpu_torch.utils.init import rand_func
+
+    obj = LVMObj(nt=1024)
+    x0s = np.stack([rand_func(obj, seed=s) for s in range(8)])
+    return obj, torch.as_tensor(x0s, dtype=obj.dtype, device=obj.device)
+
+
+def world_ode_step(torch, rank) -> dict:
+    """4: make_ode_trm_step at fishing nt=1024, S=8, on 4×1 and 2×2."""
+    from mioc_tpu_torch.parallel import make_device_mesh, make_ode_trm_step
+
+    obj, u = _step_starts(torch)
+    out = {}
+    for shape in ((4, 1), (2, 2)):
+        step = make_ode_trm_step(obj, **PRESET, mesh=make_device_mesh(*shape))
+        (un, J, M), wall = _timed(torch, lambda: step(u))
+        out[f"{shape[0]}x{shape[1]}"] = {"u": un.cpu().numpy().tolist(),
+                                         "J": bits(J, torch).cpu().tolist(),
+                                         "M": bits(M, torch).cpu().tolist(), "wall_s": wall}
+    return out
+
+
+def world_temporal(torch, rank) -> dict:
+    """5: temporal_tables_sharded over the 4 ranks at fishing and heat200,
+    bit-equal to temporal_tables on the card."""
+    from mioc_tpu_torch.parallel import make_device_mesh, temporal_tables_sharded
+    from mioc_tpu_torch.parallel.temporal import temporal_tables
+
+    mesh = make_device_mesh(batch=WORLD, level=1)
+    out = {}
+    for seed, (name, nt, B, spec, preset) in enumerate(TEMPORAL_SHARDED):
+        adm, stage, btilde, jump, smax = _dp_inputs(torch, nt, B, spec, preset, 70 + seed)
+        sh, wall = _timed(torch, lambda: temporal_tables_sharded(stage, btilde, jump, B,
+                                                                 smax, mesh))
+        ref, ref_wall = _timed(torch, lambda: temporal_tables(stage, btilde, jump, B, smax))
+        out[name] = {"bit_equal": torch.equal(bits(sh, torch), bits(ref, torch)),
+                     "sharded_ms": 1e3 * wall, "single_ms": 1e3 * ref_wall}
+    return out
+
+
+WORLD_PHASES = (("sharded_tables", world_sharded_tables), ("sharded_host", world_sharded_host),
+                ("mesh_multistart", world_mesh_multistart), ("ode_step_mesh", world_ode_step),
+                ("temporal_sharded", world_temporal))
+
+
+def world_rank(rank: int, world: int, store: str, out_dir: str) -> int:
+    """One rank of the multi-rank phases (``chip_smoke.py --world-rank R W
+    STORE DIR``, spawned by :func:`multi_rank`): joins the world with the
+    backend ``init_multihost`` picks and writes its results to
+    ``DIR/rank{R}.json``."""
+    sys.path.insert(0, ROOT)
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from mioc_tpu_torch.parallel import init_multihost
+
+    t0 = time.perf_counter()
+    init_multihost(f"file://{store}", world, rank)
+    out = {"rank": rank, "backend": dist.get_backend(), "init_s": time.perf_counter() - t0}
+    for name, fn in WORLD_PHASES:
+        t0 = time.perf_counter()
+        out[name] = fn(torch, rank)
+        out[name]["phase_s"] = time.perf_counter() - t0
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+        json.dump(out, fh)
+    dist.barrier()  # no rank leaves while another still talks to it
+    dist.destroy_process_group()
+    return 0
+
+
+def spawn(cmd, n, timeout, env=None, cwd=None):
+    """Run ``cmd(r)`` for r < n at once; kill them all when one fails or
+    ``timeout`` runs out.  Returns their outputs."""
+    procs = [subprocess.Popen(cmd(r), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True, env=env, cwd=cwd) for r in range(n)]
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        outs = [p.communicate()[0] for p in procs]
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        require(p.returncode == 0, f"process {r} of {n} exited {p.returncode} "
+                                   f"(timeout {timeout} s):\n{out[-3000:]}")
+    return outs
+
+
+def _world_env():
+    return {k: v for k, v in os.environ.items()
+            if not k.startswith(("MASTER_", "WORLD_SIZE", "RANK", "LOCAL_"))}
+
+
+def multi_rank(torch, host, seq) -> dict:
+    """The multi-rank phases: 6 (world of one, this process), 1–5 (a world
+    of ``WORLD`` ranks spawned here), 7 (the CLI under torchrun); each
+    checked against the kernel routes' results."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from mioc_tpu_torch.models import HeatObj, LVMObj
+    from mioc_tpu_torch.parallel import make_ode_trm_step
+    from mioc_tpu_torch.solvers.trm import TRMParameters, trm_solve
+    from mioc_tpu_torch.solvers.trm_device import multistart_solve_device
+    from mioc_tpu_torch.utils.init import rand_func
+
+    # 6: the sharded host loop with no mesh: a world of one (NCCL).
+    read = zero_counts(torch)
+    res, wall = _timed(torch, lambda: trm_solve(
+        LVMObj(nt=1024), TRMParameters(**PRESET, dp_backend="sharded"), seed=0))
+    launches, plain_calls = read()
+    one = {"phase": "world_of_one", "backend": dist.get_backend(),
+           "world": dist.get_world_size(), "J": res.J, "iterations": res.iterations,
+           "inner_steps": res.inner_steps, "dp_builds": res.dp_builds, "launches": launches,
+           "plain_calls_on_card": plain_calls, "wall_s": wall, "timings_s": res.timings}
+    emit(one)
+    require(one["world"] == 1 and one["backend"] == "nccl", "world of one over NCCL")
+    require((res.iterations, res.inner_steps) == (host.iterations, host.inner_steps)
+            and np.array_equal(res.u, host.u) and abs(res.J - host.J) <= 1e-12 * abs(host.J),
+            "world of one: the sharded host loop gives the kernel route's (a) result")
+    require(launches["dp_build"] == 0 and launches["chase"] == res.inner_steps
+            and not any(plain_calls.values()),
+            f"world of one: no dp_build, one chase per inner step: {launches}")
+
+    # The kernel-route and world-of-one references of phases 2–4.
+    refs = {}
+    for name, make, preset in (("fishing", lambda: LVMObj(nt=1024), PRESET),
+                               ("heat", lambda: HeatObj(nt=HEAT_NT), HEAT_PRESET)):
+        refs[name] = trm_solve(make(), TRMParameters(**preset,
+                                                     maxiter=SHARDED_MAXITER[name]), seed=0)
+    x0s = np.stack([rand_func(LVMObj(nt=1024), seed=s) for s in range(MESH_SPEC_STARTS)])
+    spec_one = multistart_solve_device(
+        LVMObj(nt=1024), TRMParameters(**PRESET, maxiter=MESH_SPEC_MAXITER), x0s,
+        speculative=True, dp_backend="sharded")
+    obj, u = _step_starts(torch)
+    step_one = [t.cpu() for t in make_ode_trm_step(obj, **PRESET)(u)]
+
+    # 1–5 in a world of WORLD ranks on this card.
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        spawn(lambda r: [sys.executable, os.path.abspath(__file__), "--world-rank", str(r),
+                         str(WORLD), os.path.join(tmp, "store"), tmp],
+              WORLD, WORLD_TIMEOUT, env=_world_env())
+        world_wall = time.perf_counter() - t0
+        ranks = []
+        for r in range(WORLD):
+            with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+    out = {"world_of_one": one, "world_wall_s": world_wall,
+           "backend": ranks[0]["backend"]}
+    require(all(r["backend"] == "gloo" for r in ranks),
+            f"{WORLD} ranks on one card take gloo: {[r['backend'] for r in ranks]}")
+
+    tables = {k: v for r in ranks for k, v in r["sharded_tables"].items() if k != "phase_s"}
+    emit({"phase": "sharded_tables", "backend": out["backend"], "dtype": "float64",
+          "ranks": [r["sharded_tables"] for r in ranks]})
+    for r in ranks:
+        for key, t in r["sharded_tables"].items():
+            if key == "phase_s":
+                continue
+            for check in ("U_equal_dp_build", "U_equal_plain", "phi0_bits_equal_dp_build",
+                          "phi0_bits_equal_plain", "padded_rows_inert", "chases_equal"):
+                require(t[check], f"sharded_tables {key} rank {r['rank']}: {check}")
+    require(set(tables) == {"fishing_level2", "fishing_level4", "heat500_level4"},
+            f"sharded_tables: every shape built: {sorted(tables)}")
+
+    host_ranks = [r["sharded_host"] for r in ranks]
+    emit({"phase": "sharded_host", "backend": out["backend"], "mesh": [1, WORLD],
+          "maxiter": SHARDED_MAXITER,
+          "ranks": [{n: {k: v for k, v in h[n].items() if k != "u"} for n in ("fishing", "heat")}
+                    for h in host_ranks],
+          "kernel_route": {n: {"J": r.J, "iterations": r.iterations,
+                               "inner_steps": r.inner_steps} for n, r in refs.items()}})
+    for h in host_ranks:
+        for name, ref in refs.items():
+            g = h[name]
+            require((g["iterations"], g["inner_steps"]) == (ref.iterations, ref.inner_steps)
+                    and np.array_equal(np.asarray(g["u"]), ref.u)
+                    and abs(g["J"] - ref.J) <= 1e-12 * abs(ref.J),
+                    f"sharded_host {name}: the kernel route's iterates at maxiter "
+                    f"{SHARDED_MAXITER[name]}")
+            n = g["launches"]
+            require(n["dp_build"] == 0 and n["chase"] == g["inner_steps"]
+                    and not any(g["plain_calls_on_card"].values()),
+                    f"sharded_host {name}: 0 dp_build and one chase per inner step: {n}")
+
+    ms = [r["mesh_multistart"] for r in ranks]
+    emit({"phase": "mesh_multistart", "backend": out["backend"],
+          "ranks": [{k: {f: v[f] for f in ("launches", "plain_calls_on_card", "wall_s")}
+                     for k, v in m.items() if k != "phase_s"} for m in ms],
+          "iterations_4x1": ms[0]["4x1_sequential"]["iterations"],
+          "iterations_2x2": ms[0]["2x2_sharded_speculative"]["iterations"]})
+    for m in ms:
+        a, b = m["4x1_sequential"], m["2x2_sharded_speculative"]
+        for s in range(N_STARTS):
+            require(a["iterations"][s] == REF32_ITERATIONS[s]
+                    and a["inner_steps"][s] == REF32_INNER[s]
+                    and abs(a["J"][s] - REF32_J[s]) <= 1e-12 * abs(REF32_J[s]),
+                    f"mesh_multistart 4x1 start {s}: the JAX constants")
+        for f in seq._fields:
+            require(np.array_equal(np.asarray(a[f]), getattr(seq, f)),
+                    f"mesh_multistart 4x1 == the one-process multistart: {f}")
+            require(np.array_equal(np.asarray(b[f]), getattr(spec_one, f)),
+                    f"mesh_multistart 2x2 sharded speculative == world of one: {f}")
+        require(a["launches"]["dp_build_batched"] > 0 and a["launches"]["chase_batched"] > 0,
+                f"mesh_multistart 4x1: dp_build_batched and chase_batched: {a['launches']}")
+        require(b["launches"]["chase_trials"] > 0 and b["launches"]["dp_build_batched"] == 0
+                and b["launches"]["dp_build"] == 0,
+                f"mesh_multistart 2x2: chase_trials, no build kernel: {b['launches']}")
+        require(not any(a["plain_calls_on_card"].values())
+                and not any(b["plain_calls_on_card"].values()),
+                "mesh_multistart: no plain DP on the card")
+
+    steps = [r["ode_step_mesh"] for r in ranks]
+    emit({"phase": "ode_step_mesh", "backend": out["backend"],
+          "wall_s": {k: [s[k]["wall_s"] for s in steps] for k in ("4x1", "2x2")}})
+    for s in steps:
+        for k in ("4x1", "2x2"):
+            require(np.array_equal(np.asarray(s[k]["u"]), step_one[0].numpy())
+                    and s[k]["J"] == bits(step_one[1], torch).tolist()
+                    and s[k]["M"] == bits(step_one[2], torch).tolist(),
+                    f"ode_step_mesh {k}: bit-equal to the world-of-one step")
+
+    temp = [r["temporal_sharded"] for r in ranks]
+    emit({"phase": "temporal_sharded", "backend": out["backend"], "ranks": temp})
+    for t in temp:
+        for name, _, _, _, _ in TEMPORAL_SHARDED:
+            require(t[name]["bit_equal"], f"temporal_sharded {name}: bit-equal")
+
+    # 7: the CLI under torchrun, 4 processes on this card.
+    t0 = time.perf_counter()
+    [run] = spawn(lambda r: [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                             "--nproc-per-node", str(WORLD), "-m", "mioc_tpu_torch.cli",
+                             *TORCHRUN_ARGS], 1, WORLD_TIMEOUT, env=_world_env(), cwd=ROOT)
+    cli_wall = time.perf_counter() - t0
+    lines = [ln for ln in run.splitlines() if ln.startswith("{")]
+    require(len(lines) == 1, f"cli_torchrun: rank 0 alone prints one JSON line: {lines}")
+    got = json.loads(lines[0])
+    best = int(np.argmin(seq.J))
+    want = {"J": float(seq.J[best]), "iterations": int(seq.iterations[best]),
+            "f_evals": int(seq.f_evals[best]), "df_evals": int(seq.df_evals[best]),
+            "converged": bool(seq.converged[best])}
+    emit({"phase": "cli_torchrun", "argv": TORCHRUN_ARGS, "nproc": WORLD, "line": got,
+          "one_process": want, "wall_s": cli_wall})
+    for k, v in want.items():
+        require(got[k] == v, f"cli_torchrun: {k} {got[k]!r} == one process's {v!r}")
+    require(got["J"] == min(REF32_J), "cli_torchrun: J is the least JAX constant")
+    out.update({name: [r[name] for r in ranks] for name, _ in WORLD_PHASES})
+    out["cli_torchrun_wall_s"] = cli_wall
+    return out
+
+
+def plots_phase(torch) -> dict:
+    """8: the CLI without --no-plot in a temporary directory: fuller
+    nt=1024 (the JAX CLI's J) writes results.png and the .dat files; heat
+    nt=60 with --device-loop the plot and the animation.  Where matplotlib
+    is not installed, the solve still prints its line and the plot raises
+    ModuleNotFoundError for it, which is what the JAX CLI does there."""
+    import contextlib
+    import io
+    import tempfile
+
+    from mioc_tpu_torch import cli
+
+    try:
+        import matplotlib  # noqa: F401
+        have_mpl = True
+    except ModuleNotFoundError:
+        have_mpl = False
+    out = {"phase": "plots", "matplotlib": have_mpl, "runs": {}}
+    old = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        os.chdir(tmp)
+        try:
+            for key, argv in (("fuller", ["fuller", "--n", "1024", "--seed", "0", "--no-log"]),
+                              ("heat_device", ["heat", "--n", "60", "--device-loop", "--seed",
+                                               "0", "--no-log"])):
+                buf = io.StringIO()
+                t0 = time.perf_counter()
+                err = None
+                try:
+                    with contextlib.redirect_stdout(buf):
+                        cli.main(argv)
+                except ModuleNotFoundError as e:
+                    err = e.name
+                wall = time.perf_counter() - t0
+                lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+                files = sorted(os.path.relpath(os.path.join(d, f), tmp)
+                               for d, _, fs in os.walk(tmp) for f in fs)
+                out["runs"][key] = {"argv": argv, "seconds": wall, "files": files,
+                                    "error": err, "line": json.loads(lines[-1]) if lines else None}
+                for f in files:
+                    os.remove(os.path.join(tmp, f))
+        finally:
+            os.chdir(old)
+    emit(out)
+    fuller = out["runs"]["fuller"]
+    J = CLI_REFS["fuller --n 1024"][0]
+    require(fuller["line"] is not None and abs(fuller["line"]["J"] - J) <= 1e-12 * abs(J),
+            "plots: fuller's J is the JAX CLI's")
+    for key, want in (("fuller", ("results.png", "data_files/v(1).dat", "data_files/y(1).dat")),
+                      ("heat_device", ("results.png", "final-state."))):
+        r = out["runs"][key]
+        if have_mpl:
+            require(r["error"] is None and all(any(f.startswith(w) for f in r["files"])
+                                               for w in want), f"plots {key}: wrote {want}")
+        else:
+            require(r["error"] == "matplotlib" and r["line"] is not None,
+                    f"plots {key}: solved, then needs matplotlib ({r['error']})")
     return out
 
 
@@ -2080,7 +2594,7 @@ def main() -> int:
     edge_phase(torch)
 
     host, host_launches = host_path(torch)
-    temporal = temporal_phase(torch, host)
+    temporal = temporal_phase(torch)
     continuous_phase(torch)
     single, single_launches, single_wall, single_sweeps = device_single_path(torch, host)
     from mioc_tpu_torch.models import LVMObj
@@ -2089,6 +2603,7 @@ def main() -> int:
     seq, seq_launches, seq_wall, seq_sweeps = multistart_path(torch, x0s, False)
     spec, spec_launches, spec_wall, spec_sweeps = multistart_path(torch, x0s, True)
     check_multistarts(seq, spec, single)
+    multi = multi_rank(torch, host, seq)
     sweeps = sweep_times(torch, x0s)
     conv = conv_rows(torch)
     import tempfile
@@ -2105,6 +2620,7 @@ def main() -> int:
 
         require(_native_triangle.available(), "the native triangulator builds")
         heat_host = heat_host_path(torch, tmp)
+    plots = plots_phase(torch)
     heat_single, heat_single_launches, heat_single_wall, heat_single_sweeps = (
         heat_device_path(torch, heat_host))
     from mioc_tpu_torch.models import HeatObj
@@ -2256,17 +2772,31 @@ def main() -> int:
                      "mixed_launches": {p: r["launches"][key] for p, r in mixed.items()},
                      "mixed240_shape_ms": (mixed240[key]["kernel_ms"]
                                            if key in ("dp_build", "chase") else None),
-                     "temporal_host_launches": temporal["host_temporal"]["launches"][key]})
+                     "temporal_host_launches": temporal["host_temporal"]["launches"][key],
+                     "multi_rank_launches_per_rank": {
+                         "world_of_one": multi["world_of_one"]["launches"][key],
+                         **{f"sharded_host_{n}": [h[n]["launches"][key]
+                                                  for h in multi["sharded_host"]]
+                            for n in ("fishing", "heat")},
+                         **{f"mesh_multistart_{n}": [m[n]["launches"][key]
+                                                     for m in multi["mesh_multistart"]]
+                            for n in ("4x1_sequential", "2x2_sharded_speculative")}}})
     # Last, as a profiler trace slows every later launch of the process: the
     # kernels of a large-mesh sweep step and of one fine banded application.
     from mioc_tpu_torch.profile_kernels import large_sweep_section
 
     emit({"phase": "heat_large_launch_profile", **large_sweep_section()})
-    emit({"phase": "run", "seconds": time.perf_counter() - t_start})
+    emit({"phase": "run", "seconds": time.perf_counter() - t_start,
+          "plots_seconds": {k: r["seconds"] for k, r in plots["runs"].items()}})
+    import torch.distributed as dist
+
+    dist.destroy_process_group()  # the world of one of phase 6
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})
     return 0
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--world-rank"]:
+        sys.exit(world_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))
     sys.exit(main())

@@ -16,17 +16,17 @@ Differences from the JAX CLI:
   anyway (the plain versions on the CPU); ``scan`` means the plain versions
   and is refused on the card, where no solve runs them; ``temporal`` runs
   the host loop on the banded temporal DP (``--device-loop`` takes the
-  ordinary route, as the JAX package's does); ``sharded`` is not ported and
-  raises ``NotImplementedError`` (``solvers.trm.dp_route``, the rule the
-  solvers apply too);
-* plotting is not ported (ROADMAP.md queue A item 7), nor the animation of
-  a PDE state that the JAX CLI adds for ``heat``: a run that the JAX CLI
-  would plot — a single host-loop solve, any ``--device-loop`` run, or
-  ``mixed`` — without ``--no-plot`` raises ``NotImplementedError`` before
-  it solves; the host-loop ``--multistart N`` (N > 1), which the JAX CLI
-  does not plot, runs;
-* ``--multistart`` with ``--device-loop`` runs the batched multistart on one
-  device (no mesh).
+  ordinary route, as the JAX package's does); ``sharded`` builds with the
+  level-sharded DP over every rank of the world (``solvers.trm.dp_route``,
+  the rule the solvers apply too);
+* several processes come from ``torchrun`` (``WORLD_SIZE`` > 1 in the
+  environment), where the JAX CLI sees several devices in one process: the
+  CLI then calls ``init_multihost()``, ``--device-loop --multistart N``
+  splits the starts over a ``(batch=world)`` mesh when ``N`` is divisible by
+  the world size, and only rank 0 prints and writes files::
+
+      torchrun --standalone --nproc-per-node 4 -m mioc_tpu_torch.cli fishing \
+          --device-loop --multistart 32 --seed 0 --no-plot --no-log
 
 ``mixed`` runs the mixed continuous+integer solver (``solvers.mixed``) and
 prints the JAX CLI's lines and JSON keys (``problem``, ``n``, ``J``,
@@ -37,14 +37,13 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
 import numpy as np
 
 from .models import registry
-
-_PLOT = "ROADMAP.md queue A item 7 (utils/plotting.py, utils/vtk.py)"
 
 
 def build_objective(problem: str, n: int, device=None):
@@ -73,9 +72,7 @@ def main(argv=None):
     ap.add_argument("--delta0", type=float, default=None)
     ap.add_argument("--p", type=float, default=None)
     ap.add_argument("--maxiter", type=int, default=1000)
-    ap.add_argument("--no-plot", action="store_true",
-                    help="required where the run would plot (a single solve, or "
-                         "--device-loop): plotting is not ported yet")
+    ap.add_argument("--no-plot", action="store_true")
     ap.add_argument("--no-log", action="store_true")
     ap.add_argument("--metrics", default=None, help="jsonl metrics path")
     ap.add_argument("--checkpoint", default=None, help="npz checkpoint path")
@@ -88,8 +85,9 @@ def main(argv=None):
                     choices=["scan", "pallas", "temporal", "sharded"],
                     help="DP engine: 'pallas' = the CUDA kernels (the default on "
                          "the card), 'scan' = the plain versions (CPU only), "
-                         "'temporal' = the banded temporal DP (host loop); "
-                         "'sharded' is not ported")
+                         "'temporal' = the banded temporal DP (host loop), "
+                         "'sharded' = the contraction partitioned over the ranks' "
+                         "level axis")
     ap.add_argument("--speculative", dest="speculative", default=None,
                     action="store_true",
                     help="device loop: evaluate the whole trust-region halving "
@@ -105,15 +103,15 @@ def main(argv=None):
                     help="torch device of the solve (default: cuda; no fallback)")
     args = ap.parse_args(argv)
 
-    # The JAX CLI plots where it holds an objective: after a mixed solve, a
-    # single solve or any device-loop run, not after the host-loop multistart.
-    if not args.no_plot and (args.problem == "mixed" or args.device_loop
-                             or args.multistart <= 1):
-        raise NotImplementedError(f"plotting is not ported yet: {_PLOT}; pass --no-plot")
-
     from ._device import resolve_device
     from .solvers.trm import TRMParameters, TRMResult, dp_route, trm_solve
 
+    rank, world = 0, 1
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:  # under torchrun
+        from .parallel import init_multihost
+
+        rank, world = init_multihost()
+    lead = rank == 0  # prints and writes files
     device = resolve_device(args.device)
     dp_route(args.dp_backend, None, device)
     preset = dict(registry.get(args.problem).preset)
@@ -123,9 +121,9 @@ def main(argv=None):
     par = TRMParameters(
         **preset,
         maxiter=args.maxiter,
-        log=not args.no_log,
-        metrics_path=args.metrics,
-        checkpoint_path=args.checkpoint,
+        log=lead and not args.no_log,
+        metrics_path=args.metrics if lead else None,
+        checkpoint_path=args.checkpoint if lead else None,
         dp_backend=args.dp_backend,
     )
 
@@ -149,6 +147,8 @@ def main(argv=None):
         mres = mixed_solve(obj, MixedParameters(trm=par), x0=_julia_x0(obj),
                            seed=args.seed)
         wall = time.time() - t0
+        if not lead:
+            return 0
         print(f"{wall:.3f} seconds")
         print(f"Objective Value: J = {mres.J}")
         print(json.dumps({
@@ -156,6 +156,10 @@ def main(argv=None):
             "rounds": mres.rounds, "converged": mres.converged,
             "wall_s": round(wall, 3),
         }))
+        if not args.no_plot:
+            from .utils.plotting import plot_results
+
+            print(f"plot saved to {plot_results(obj)}")
         return 0
     if args.device_loop:
         from .solvers.trm_device import (DeviceTRMResult, multistart_solve_device,
@@ -166,14 +170,20 @@ def main(argv=None):
             x0s = np.stack([_julia_x0(obj, s) if args.julia_start
                             else rand_func(obj, seed=(args.seed or 0) + s)
                             for s in range(args.multistart)])
-            batch = multistart_solve_device(obj, par, x0s, speculative=args.speculative)
+            mesh = None
+            if world > 1 and args.multistart % world == 0:
+                from .parallel import make_device_mesh
+
+                mesh = make_device_mesh(batch=world, device_type=device.type)
+            batch = multistart_solve_device(obj, par, x0s, mesh=mesh,
+                                            speculative=args.speculative)
             best = int(np.argmin(batch.J))
             dev = DeviceTRMResult(*[leaf[best] for leaf in batch])
         else:
             # --device-chunk: absent → adaptive, 0 → one segment, N → fixed.
             chunk = "auto" if args.device_chunk is None else args.device_chunk or None
             prog = None
-            if not args.no_log:
+            if lead and not args.no_log:
                 def prog(it, s):
                     print(f"  device loop: {it} outer iterations ({s:.1f} s segment)")
             dev = trm_solve_device(obj, par, x0=_julia_x0(obj), seed=args.seed,
@@ -186,6 +196,8 @@ def main(argv=None):
             df_evals=int(dev.df_evals), tv=float(dev.tv), f=float(dev.f),
             dp_builds=int(dev.dp_builds), timings={},
         )
+        obj.x = obj.as_control(dev.x_final)  # for plotting parity with the reference
+        obj.eval_fdf_()
     elif args.multistart > 1:
         from .parallel import multistart_solve
 
@@ -194,9 +206,12 @@ def main(argv=None):
             x0s = np.stack([_julia_x0(obj, s) for s in range(args.multistart)])
         res, _ = multistart_solve(lambda: build_objective(args.problem, args.n, device),
                                   args.multistart, par, seed=args.seed or 0, x0s=x0s)
+        obj = None  # the JAX CLI plots nothing after the host-loop multistart
     else:
         res = trm_solve(obj, par, x0=_julia_x0(obj), seed=args.seed)
     wall = time.time() - t0
+    if not lead:
+        return 0
 
     print(f"{wall:.3f} seconds")
     print(f"Objective Value: J = {res.J}")
@@ -207,6 +222,20 @@ def main(argv=None):
         "wall_s": round(wall, 3),
         "timings": {k: round(v, 3) for k, v in res.timings.items()},
     }))
+
+    if not args.no_plot and obj is not None:
+        from .utils.plotting import plot_results
+
+        print(f"plot saved to {plot_results(obj)}")
+        from .objectives.pde import PDEObjective
+
+        if isinstance(obj, PDEObjective):
+            from .utils.plotting import animate_solution
+
+            print("Animating solution, this could take a few seconds")
+            out = animate_solution(obj.mesh, obj.state.detach().cpu().numpy().T, obj.tau,
+                                   v=np.asarray(res.u))
+            print(f"animation saved to {out}")
     return 0
 
 

@@ -8,10 +8,10 @@ assemble
     F_i  = ∫ f φᵢ dx (+ ∫ g φᵢ ds)
 
 and solve either the Robin problem ``A u = F`` or the Dirichlet
-saddle-point system ``[A Dᵀ; D 0][u; μ] = [F; 0]``.  Visualization (the JAX
-package's VTK and PNG output of ``visualize=True`` and
-:func:`plot_shape_functions`) is not ported yet and raises
-``NotImplementedError`` naming ROADMAP.md queue A item 7.
+saddle-point system ``[A Dᵀ; D 0][u; μ] = [F; 0]``.  ``visualize=True``
+writes the solution as legacy VTK and a PNG surface plot
+(``utils.vtk``, ``utils.plotting``), and :func:`plot_shape_functions`
+exports every global shape function as a VTK series.
 """
 
 from __future__ import annotations
@@ -23,13 +23,11 @@ import scipy.sparse as sp
 import scipy.sparse.linalg as spla
 
 from .assembly import area_integrator, bdry_integrator
-from .fe import FE_Lagrange, dirichlet_constraints, ndofs
-from .mesh import init_mesh, mesh_library, refine_all_cells
+from .fe import FE_Lagrange, dirichlet_constraints, name, ndofs
+from .mesh import init_mesh, mesh_library, prolongation, refine_all_cells
 from .quadrature import quadrature_unit_triangle_area
 
 __all__ = ["FEM", "simple_test_FEM", "fem_benchmark", "plot_shape_functions"]
-
-_PLOT = "ROADMAP.md queue A item 7 (utils/plotting.py, utils/vtk.py)"
 
 _FE_TYPES = {
     "Lagrange_1": 1,
@@ -41,12 +39,11 @@ _FE_TYPES = {
 def FEM(h_A, h_beta, h_c, h_f, h_alpha, h_g, *, fe_type="Lagrange_2", hmax=0.01,
         geometry="squareg", vertices=None, dirichlet=False, QuadOrderA=2,
         QuadOrderB=1, visualize=False, out_prefix="Solution"):
-    """Elliptic solve (test_FEM.jl:21-95).  Returns ``(mesh, U)``.
-    ``visualize=True`` raises ``NotImplementedError`` (not ported yet)."""
+    """Elliptic solve (test_FEM.jl:21-95).  Returns ``(mesh, U)``;
+    ``visualize=True`` also writes ``<out_prefix>-<fe_type>.vtk`` and
+    ``.png`` (P2/P3 solutions prolonged onto refined P1 meshes first)."""
     if fe_type not in _FE_TYPES:
         raise ValueError(f"Finite element {fe_type!r} unknown.")
-    if visualize:
-        raise NotImplementedError(f"FEM visualization is not ported yet: {_PLOT}")
     fe = FE_Lagrange(_FE_TYPES[fe_type])
 
     mesh = init_mesh(np.asarray(vertices, float), hmax) if vertices is not None \
@@ -67,6 +64,25 @@ def FEM(h_A, h_beta, h_c, h_f, h_alpha, h_g, *, fe_type="Lagrange_2", hmax=0.01,
     else:
         U = spla.spsolve(A, F)
 
+    if visualize:
+        from ..utils.plotting import plot_solution
+        from ..utils.vtk import write_vtk
+
+        k = fe.k
+        if k == 1:
+            write_vtk(f"{out_prefix}-{fe_type}", mesh, U)
+            plot_solution(mesh, U, name(fe), f"{out_prefix}-{fe_type}.png")
+        else:
+            # Refine + prolong onto P1 for visualization (test_FEM.jl:79-92).
+            rmesh = refine_all_cells(mesh)
+            P = prolongation(mesh, rmesh, fe, FE_Lagrange(1))
+            U1 = P @ U
+            if k == 3:
+                rmesh2 = refine_all_cells(rmesh)
+                P2 = prolongation(rmesh, rmesh2, FE_Lagrange(1))
+                U1, rmesh = P2 @ U1, rmesh2
+            write_vtk(f"{out_prefix}-{fe_type}", rmesh, U1[: rmesh.np])
+            plot_solution(rmesh, U1[: rmesh.np], name(fe), f"{out_prefix}-{fe_type}.png")
     return mesh, U
 
 
@@ -117,6 +133,19 @@ def fem_benchmark(refs=6, verbose=True):
 
 
 def plot_shape_functions(fe, refs=3, mesh=None, out_prefix=None):
-    """Export every global shape function as a VTK series (FE.jl:440-460):
-    not ported yet, raises ``NotImplementedError``."""
-    raise NotImplementedError(f"plot_shape_functions is not ported yet: {_PLOT}")
+    """Export every global shape function on a refined mesh as a VTK series
+    (FE.jl:440-460)."""
+    from .mesh import triangle_mesh
+    from ..utils.vtk import PVDCollection, pvd_append
+
+    mesh = mesh if mesh is not None else triangle_mesh()
+    rmesh = mesh
+    for _ in range(refs):
+        rmesh = refine_all_cells(rmesh)
+    P = prolongation(mesh, rmesh, fe, FE_Lagrange(1))
+    prefix = out_prefix or name(fe).replace(" ", "_")
+    with PVDCollection(prefix) as pvd:
+        for i in range(ndofs(fe, mesh)):
+            U = np.asarray(P[:, i].todense()).ravel()
+            pvd_append(pvd, i, rmesh, U)
+    return prefix + ".pvd"

@@ -9,8 +9,12 @@ Counterpart of ``mioc_tpu.parallel.batch``:
 * :func:`multistart_solve` — full host-loop TRM solves from ``n_starts``
   starts, returning the best.
 
-A device ``mesh`` (the JAX package's sharding of the batch over chips) is not
-ported yet and raises ``NotImplementedError``.
+With a :class:`~.device_mesh.Mesh` the step runs SPMD on every rank: each
+rank takes its block of the starts along ``"batch"``, and where the mesh's
+``"level"`` axis is larger than 1 the DP build inside the block is the
+level-sharded :func:`~.shard_dp.dp_body` on the padded stage tables; the
+outputs are gathered over ``"batch"``, so every rank returns the whole
+batch (the JAX package's sharded outputs, read whole).
 """
 
 from __future__ import annotations
@@ -28,19 +32,18 @@ from ..ops.bellman import (
 )
 from ..ops.levels import jump_cost_table
 from ..ops.tv import fold_sum, tv_rows
+from .shard_dp import dp_body, jump_block, pad_level_axis
 
 __all__ = ["make_ode_trm_step", "multistart_solve"]
-
-_UNPORTED = "ROADMAP.md queue A item 6 (parallel/: device_mesh.py, shard_dp.py)"
 
 
 def make_ode_trm_step(obj, *, beta: float, p, delta0: float, mesh=None,
                       compat_pinf: bool = False):
     """Build ``step(u_batch) -> (u_new, J_new, J_model)`` for an ODE
     objective on ``obj.device``.  ``u_batch`` is ``(S, nt, nx)``;
-    ``J_model[s]`` is the DP's model objective ``τ·Σ ∇f·u_new + β·TV``."""
-    if mesh is not None:
-        raise NotImplementedError(f"a device mesh is not ported yet: {_UNPORTED}")
+    ``J_model[s]`` is the DP's model objective ``τ·Σ ∇f·u_new + β·TV``.
+    With a ``mesh``, ``S`` must be divisible by its ``"batch"`` size (else
+    ``ValueError``) and every rank of the mesh must call the step."""
     adm = obj.admissible
     dev, dtype = obj.device, obj.dtype
     levels = torch.as_tensor(adm.levels, dtype=dtype, device=dev)
@@ -50,17 +53,39 @@ def make_ode_trm_step(obj, *, beta: float, p, delta0: float, mesh=None,
     smax = max_budget_use(adm.levels)
     B = int(np.floor(delta0 / obj.tau))
     tau = obj.tau
+    lev = mesh.shape["level"] if mesh is not None else 1
+    if lev > 1:
+        block = jump_block(jump, mesh)
+        # Levels padded by zero rows where the chase gathers them.
+        levels = torch.cat([levels, levels.new_zeros(block.shape[0] - adm.L, adm.M)])
 
-    def step(u_batch):
-        u = torch.as_tensor(u_batch, dtype=dtype, device=dev)
+    def dp_build(stage, btilde):
+        if lev == 1:
+            return (*build_tables_batched(stage, btilde, jump, B, smax), btilde)
+        stage_p, btilde_p, _, _ = pad_level_axis(stage, btilde, jump, lev, B)
+        return (*dp_body(stage_p, btilde_p, block, B, mesh), btilde_p)
+
+    def one(u):
         _, ys = obj._forward_batch(u)
         grad, _ = obj._adjoint_batch(u, ys)
-        stage, btilde = stage_tables(grad, u, levels, tau)
-        U, phi0 = build_tables_batched(stage, btilde, jump, B, smax)
-        u_new, _ = backtrack_batched(U, phi0, btilde, levels, B)
+        stage, btilde = stage_tables(grad, u, adm.levels, tau)
+        u_new, _ = backtrack_batched(*dp_build(stage, btilde), levels, B)
         f_new, _ = obj._forward_batch(u_new)
         model = tau * fold_sum((grad * u_new).flatten(-2)) + beta * tv_rows(u_new, p)
         return u_new, f_new, model
+
+    def step(u_batch):
+        u = torch.as_tensor(u_batch, dtype=dtype, device=dev)
+        if mesh is None:
+            return one(u)
+        nb = mesh.shape["batch"]
+        if u.shape[0] % nb:
+            raise ValueError(f"{u.shape[0]} scenarios are not divisible by the mesh's "
+                             f"batch axis of {nb}")
+        Sb = u.shape[0] // nb
+        b = mesh.coord("batch")
+        return tuple(mesh.all_gather(t, "batch").flatten(0, 1)
+                     for t in one(u[b * Sb:(b + 1) * Sb]))
 
     return step
 

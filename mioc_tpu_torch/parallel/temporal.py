@@ -27,21 +27,25 @@ XLA, not Pallas.  Every value is an add of two numbers or a min, in the JAX
 package's composition order (in :func:`_chunk_op` the running min over
 ``m``, then the shift, then ``stage_i + …``; in :func:`_apply_op` the min
 over ``j`` and then over ``d``), so at float64 the tables equal the JAX
-package's bit for bit, on the CPU and on the card.  The sharded form
-(``temporal_tables_sharded``) needs more than one device and is not ported
-here (ROADMAP.md queue A item 6).
+package's bit for bit, on the CPU and on the card.
+:func:`temporal_tables_sharded` partitions the chunk axis over a mesh axis:
+each rank composes and recovers only its own chunks, the small operator
+band and the recovered tables are all-gathered, so every rank returns the
+same tables, bit-equal to :func:`temporal_tables`'.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..ops.bellman import max_budget_use, stage_tables
 
-__all__ = ["temporal_tables", "temporal_backtrack", "temporal_dp_solve"]
+__all__ = ["temporal_tables", "temporal_tables_sharded", "temporal_backtrack",
+           "temporal_dp_solve"]
 
 
 def _shift_d(arr, shifts, smax: int, axis: int):
@@ -112,13 +116,27 @@ def _recover(phi_end, st, bt, ok, jump, smax: int):
     return torch.stack(out, dim=1)
 
 
-def temporal_tables(stage, btilde, jump_cost, B: int, smax: int = None,
-                    chunk: int = None):
-    """All suffix value tables ``phis (nt, B+1, L)`` via the banded two-level
-    temporal parallelization, on ``stage``'s device.  ``smax`` is the
-    per-step budget-use bound (:func:`~mioc_tpu_torch.ops.bellman.max_budget_use`;
-    defaults to ``B``); ``chunk`` is the chunk length ``K`` (default
-    ``⌈√(nt−1)⌉``)."""
+class _Chunks(NamedTuple):
+    """The two-level schedule's operator data: ``st``/``bt`` ``(C, K, L)``,
+    ``valid (C, K)`` (identity steps in front), the terminal layer ``phi_T
+    (B+1, L)``, the band width ``W`` and the count ``pad`` of identity
+    steps."""
+
+    st: torch.Tensor
+    bt: torch.Tensor
+    valid: torch.Tensor
+    phi_T: torch.Tensor
+    jump: torch.Tensor
+    b_ax: torch.Tensor
+    smax: int
+    W: int
+    pad: int
+
+
+def _chunks(stage, btilde, jump_cost, B: int, smax, chunk, D: int = 1):
+    """Lay the steps out in ``C`` chunks of ``K`` (``C`` rounded up to a
+    multiple of ``D``); ``None`` when there is no step (``nt = 1``), where
+    the tables are ``phi_T[None]``."""
     nt, L = stage.shape
     if smax is None:
         smax = B
@@ -127,43 +145,89 @@ def temporal_tables(stage, btilde, jump_cost, B: int, smax: int = None,
     K = chunk or max(1, int(math.ceil(math.sqrt(ns))))
     K = min(K, ns) if ns else 1
     C = -(-ns // K) if ns else 0
+    C = -(-C // D) * D  # chunks divisible by the mesh axis
     pad = C * K - ns
     W = min(B, K * smax) + 1
 
     dtype, dev = stage.dtype, stage.device
-    jump = jump_cost.to(dtype)
     btilde = btilde.to(torch.int64)
-
     # Terminal layer Φ_{nt-1}[b, l] (exact-budget seed, HelpFunctions.jl:29-43).
     b_ax = torch.arange(B + 1, device=dev)
     inf = torch.tensor(math.inf, dtype=dtype, device=dev)
     phi_T = torch.where(b_ax[:, None] == btilde[-1][None, :], stage[-1][None, :], inf)
-    if C == 0:
-        return phi_T[None]
-
     # Padded per-step operator data; identity steps (valid=False) in front.
     st = torch.cat([torch.zeros((pad, L), dtype=dtype, device=dev), stage[:-1]])
     bt = torch.cat([torch.zeros((pad, L), dtype=torch.int64, device=dev), btilde[:-1]])
     valid = torch.cat([torch.zeros(pad, dtype=torch.bool, device=dev),
                        torch.ones(ns, dtype=torch.bool, device=dev)])
-    st, bt, valid = st.reshape(C, K, L), bt.reshape(C, K, L), valid.reshape(C, K)
+    return _Chunks(st.reshape(C, K, L), bt.reshape(C, K, L), valid.reshape(C, K), phi_T,
+                   jump_cost.to(dtype), b_ax, smax, W, pad)
 
-    # 1. chunk operators (all chunks at once).
-    Gs = _chunk_op(st, bt, valid, jump, smax, W)  # (C, L, W, L)
 
-    # 2. boundary sweep (C sequential banded op ⊗ vector); Psis[c] = Φ at the
-    # padded boundary position c·K.
+def _boundary(Gs, ch: _Chunks):
+    """The boundary sweep, ``C`` sequential banded op ⊗ vector applications
+    from the terminal layer: ``Psis_next[c]`` is Φ at the padded position
+    ``(c+1)·K``, where chunk ``c``'s recovery starts (``Ψ_C = φ_T``)."""
+    C = Gs.shape[0]
     Psis = [None] * C
-    phi = phi_T
+    phi = ch.phi_T
     for c in range(C - 1, -1, -1):
-        phi = _apply_op(Gs[c], phi, W, b_ax)
+        phi = _apply_op(Gs[c], phi, ch.W, ch.b_ax)
         Psis[c] = phi
-    # Chunk c's recovery starts from the NEXT boundary (Ψ_{c+1}); Ψ_C = φ_T.
-    Psis_next = torch.stack(Psis[1:] + [phi_T])
+    return torch.stack(Psis[1:] + [ch.phi_T])
 
+
+def _assemble(interior, ch: _Chunks):
+    """The suffix tables ``(nt, B+1, L)`` from the recovered chunks."""
+    C, K, B1, L = interior.shape
+    return torch.cat([interior.reshape(C * K, B1, L)[ch.pad:], ch.phi_T[None]])
+
+
+def temporal_tables(stage, btilde, jump_cost, B: int, smax: int = None,
+                    chunk: int = None):
+    """All suffix value tables ``phis (nt, B+1, L)`` via the banded two-level
+    temporal parallelization, on ``stage``'s device.  ``smax`` is the
+    per-step budget-use bound (:func:`~mioc_tpu_torch.ops.bellman.max_budget_use`;
+    defaults to ``B``); ``chunk`` is the chunk length ``K`` (default
+    ``⌈√(nt−1)⌉``)."""
+    ch = _chunks(stage, btilde, jump_cost, B, smax, chunk)
+    if ch.st.shape[0] == 0:
+        return ch.phi_T[None]
+    # 1. chunk operators (all chunks at once).
+    Gs = _chunk_op(ch.st, ch.bt, ch.valid, ch.jump, ch.smax, ch.W)  # (C, L, W, L)
+    # 2. boundary sweep.
+    Psis_next = _boundary(Gs, ch)
     # 3. interior recovery (all chunks at once).
-    interior = _recover(Psis_next, st, bt, valid, jump, smax)  # (C, K, B+1, L)
-    return torch.cat([interior.reshape(C * K, B + 1, L)[pad:], phi_T[None]])
+    return _assemble(_recover(Psis_next, ch.st, ch.bt, ch.valid, ch.jump, ch.smax), ch)
+
+
+def temporal_tables_sharded(stage, btilde, jump_cost, B: int, smax: int, mesh,
+                            axis: str = "batch", chunk: int = None):
+    """Time-axis (sequence-parallel) sharding of the banded temporal DP over
+    the ranks of ``mesh``'s ``axis`` (every one of them must call it):
+
+    * each rank composes the chunk operators of the chunks it owns (step 1,
+      the dominant O(ns·L²·W) work, in parallel over the ranks);
+    * the boundary sweep (step 2, the O(C) sequential critical path) runs
+      replicated on an ``all_gather`` of the small ``(C, L, W, L)`` band;
+    * each rank recovers only its own chunks (step 3), and a last
+      ``all_gather`` gives every rank the whole tables.
+
+    Returns the tables of :func:`temporal_tables`, bit for bit (the chunk
+    count is rounded up to a multiple of the axis size with identity steps,
+    which change no value), for :func:`temporal_backtrack` as they are."""
+    D = mesh.shape[axis]
+    ch = _chunks(stage, btilde, jump_cost, B, smax, chunk, D)
+    C, K, L = ch.st.shape
+    if C == 0:
+        return ch.phi_T[None]
+    Cd = C // D
+    own = slice(mesh.coord(axis) * Cd, (mesh.coord(axis) + 1) * Cd)
+    st, bt, ok = ch.st[own], ch.bt[own], ch.valid[own]
+    Gs = mesh.all_gather(_chunk_op(st, bt, ok, ch.jump, ch.smax, ch.W), axis)
+    Psis_next = _boundary(Gs.reshape(C, L, ch.W, L), ch)
+    interior = _recover(Psis_next[own], st, bt, ok, ch.jump, ch.smax)
+    return _assemble(mesh.all_gather(interior, axis).reshape(C, K, B + 1, L), ch)
 
 
 def temporal_backtrack(phis, btilde, jump_cost, levels, B_new):

@@ -19,7 +19,12 @@ stop control flow stays on the host; on the card every DP build launches the
 ``dp_backend="temporal"`` builds with the banded temporal DP
 (:func:`~mioc_tpu_torch.parallel.temporal.temporal_tables`, tensor code) and
 chases with :func:`~mioc_tpu_torch.parallel.temporal.temporal_backtrack`
-instead, on either device.
+instead, on either device.  ``dp_backend="sharded"`` builds with the
+level-sharded DP (:func:`~mioc_tpu_torch.parallel.shard_dp.build_tables_sharded`,
+tensor code and one collective per step, over ``par.mesh`` or every rank of
+the world on the ``level`` axis) and chases its padded tables with the
+ordinary chase: the ``chase`` kernel on the card.  Every rank of the mesh
+runs the same solve.
 
 Documented divergences from the reference (all edge-path only, kept from the
 JAX package):
@@ -52,12 +57,6 @@ from ..utils.logging import IterationLog
 
 __all__ = ["TRMParameters", "TRMResult", "trm_solve", "TRM", "dp_route"]
 
-# DP backends of the JAX package that this port does not have yet, with the
-# ROADMAP.md item (queue A) that ports them.
-_UNPORTED_BACKENDS = {
-    "sharded": "queue A item 6 (parallel/: shard_dp.py)",
-}
-
 
 def dp_route(dp_backend: Optional[str], use_pallas: Optional[bool], device) -> str:
     """The DP route of a solve on ``device``, from the JAX package's two
@@ -71,18 +70,16 @@ def dp_route(dp_backend: Optional[str], use_pallas: Optional[bool], device) -> s
       solve there runs them;
     * ``"temporal"``: the banded temporal DP on either device (returns
       ``"temporal"``);
-    * ``"sharded"``: ``NotImplementedError`` naming its ROADMAP.md item; any
-      other name: ``ValueError``.
+    * ``"sharded"``: the level-sharded build over a mesh of ranks on either
+      device, its padded tables chased by the device's chase (returns
+      ``"sharded"``); any other name: ``ValueError``.
 
     All routes give the same chases; ``"pallas"`` and ``"scan"`` the same
     tables, bit for bit."""
     name = dp_backend
     if name is None:
         name = "scan" if use_pallas is False else "pallas"
-    if name in _UNPORTED_BACKENDS:
-        raise NotImplementedError(f"dp_backend={name!r} is not ported yet: ROADMAP.md "
-                                  f"{_UNPORTED_BACKENDS[name]}")
-    if name not in ("pallas", "scan", "temporal"):
+    if name not in ("pallas", "scan", "temporal", "sharded"):
         raise ValueError(f"Unknown dp_backend {name!r}")
     if name == "scan" and torch.device(device).type == "cuda":
         raise ValueError("dp_backend='scan' (use_pallas=False) selects the plain versions, "
@@ -99,8 +96,9 @@ class TRMParameters:
     neither run the CUDA kernels on the card and the plain versions on the
     CPU; ``"scan"`` or ``False`` the plain versions, on the CPU only;
     ``"temporal"`` the banded temporal DP (``parallel.temporal``);
-    ``"sharded"`` raises ``NotImplementedError``.  The difference from
-    ``mioc_tpu``'s: there is no ``mesh``.
+    ``"sharded"`` the level-sharded build (``parallel.shard_dp``) over
+    ``mesh``, a :class:`~mioc_tpu_torch.parallel.device_mesh.Mesh` of ranks
+    (default: every rank of the world on the ``level`` axis).
     """
 
     beta: float = 0.001      # weight of the TV_p term (β)
@@ -113,6 +111,8 @@ class TRMParameters:
     compat_pinf: bool = False  # reproduce the reference's p=inf jump cost
     use_pallas: Optional[bool] = None  # the DP route (dp_route): None/True kernels
     dp_backend: Optional[str] = None   # "pallas" | "scan" | "temporal" | "sharded"
+    mesh: Optional[object] = None      # mesh of ranks for dp_backend="sharded"
+                                       # (default: all ranks on the level axis)
     metrics_path: Optional[str] = None  # jsonl per-iteration metrics
     checkpoint_path: Optional[str] = None  # npz snapshot per outer iteration
     resume_from: Optional[str] = None   # restart from a checkpoint npz
@@ -192,6 +192,24 @@ def trm_solve(obj, par: TRMParameters = None, x0=None, seed: Optional[int] = Non
 
         def dp_backtrack(tables, btilde, B_new):
             return temporal_backtrack(tables[0], btilde, jump, levels, B_new)
+    elif route == "sharded":
+        # Level-axis tensor parallelism: the DP's min-plus contraction is
+        # partitioned over the mesh's ``level`` axis; the chases (halvings
+        # included) run on the returned replicated padded tables.
+        from ..parallel.device_mesh import default_level_mesh
+        from ..parallel.shard_dp import build_tables_sharded, pad_level_axis
+
+        mesh = par.mesh or default_level_mesh(dev.type)
+        D = mesh.shape["level"]
+
+        def dp_build(stage, btilde):
+            U, phi0 = build_tables_sharded(stage, btilde, jump, B, smax, mesh)
+            btilde_p = pad_level_axis(stage, btilde, jump, D, B)[1]
+            return U, check_nan(phi0, "the DP table phi0"), btilde_p
+
+        def dp_backtrack(tables, btilde, B_new):
+            U, phi0, btilde_p = tables
+            return backtrack(U, phi0, btilde_p, levels, B_new)
     else:
         def dp_build(stage, btilde):
             U, phi0 = build_tables(stage, btilde, jump, B, smax)

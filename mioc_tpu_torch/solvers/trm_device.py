@@ -30,7 +30,16 @@ inner loop with ``chase`` and its trial wave (``wave_chase="vmap"``) with
 multistart builds with ``dp_build_batched``, chases its inner loop with
 ``chase_batched`` (a cap per start) and its wave with ``chase_trials`` (S
 table sets of K caps each, whichever ``wave_chase``).  On the CPU the same
-calls take the plain versions.
+calls take the plain versions.  ``dp_backend="sharded"`` builds with the
+level-sharded DP (``parallel.shard_dp``, one collective per step for all
+the starts) and chases its padded tables with the same chases.
+
+With a mesh of ranks (``parallel.device_mesh``), every rank runs this loop
+on its own tensors: a multistart's starts are split over ``"batch"`` and
+the result gathered over it at the end; the ranks of one ``"level"`` group
+hold the same starts and, their arithmetic being deterministic, make the
+same decisions, so they build, and meet in the build's collectives, the same
+number of times.
 """
 
 from __future__ import annotations
@@ -59,8 +68,6 @@ from .trm import _profiler, dp_route
 
 __all__ = ["DeviceTRMResult", "make_device_trm", "trm_solve_device",
            "multistart_solve_device"]
-
-_UNPORTED = "ROADMAP.md queue A item 6 (parallel/: shard_dp.py, device_mesh.py)"
 
 
 class DeviceTRMResult(NamedTuple):
@@ -170,12 +177,14 @@ def make_device_trm(obj, par, use_pallas: Optional[bool] = None,
     ``dp_backend="temporal"`` runs the ordinary route here, as the JAX
     package's ``make_device_trm`` does (it special-cases only
     ``"sharded"``): the kernels on the card, the plain versions on the CPU.
-    ``dp_backend="sharded"`` and ``mesh`` are not ported and raise
-    ``NotImplementedError``."""
-    if mesh is not None:
-        raise NotImplementedError(f"device meshes are not ported yet: {_UNPORTED}")
-    dp_route(par.dp_backend if dp_backend is None else dp_backend,
-             par.use_pallas if use_pallas is None else use_pallas, obj.device)
+    ``dp_backend="sharded"`` builds every table set with the level-sharded
+    DP over ``mesh`` (default: ``par.mesh``, else every rank of the world on
+    the ``level`` axis) and chases the padded tables with the levels padded
+    by zero rows; every rank of the mesh's ``level`` group must run the same
+    solve.  Without ``"sharded"`` the mesh matters only to
+    :func:`multistart_solve_device`'s split of the starts."""
+    route = dp_route(par.dp_backend if dp_backend is None else dp_backend,
+                     par.use_pallas if use_pallas is None else use_pallas, obj.device)
     if wave_chase not in ("vmap", "trials"):
         raise ValueError(f"wave_chase must be 'vmap' or 'trials', got {wave_chase!r}")
     adm = obj.admissible
@@ -195,6 +204,15 @@ def make_device_trm(obj, par, use_pallas: Optional[bool] = None,
     jump = torch.as_tensor(
         jump_cost_table(levels_np, p, beta=beta, compat_pinf=par.compat_pinf),
         dtype=dtype, device=dev)
+    levels_bt = levels  # the levels the chases gather from
+    if route == "sharded":
+        from ..parallel.device_mesh import default_level_mesh
+        from ..parallel.shard_dp import build_tables_sharded, pad_level_axis
+
+        mesh = mesh if mesh is not None else (par.mesh or default_level_mesh(dev.type))
+        D = mesh.shape["level"]
+        Lp = -(-len(levels_np) // D) * D
+        levels_bt = torch.cat([levels, levels.new_zeros(Lp - len(levels_np), levels.shape[1])])
 
     # Static speculative halving schedule, computed in the objective dtype's
     # arithmetic: the sequential loop floors a carried δ of that dtype, and a
@@ -213,26 +231,30 @@ def make_device_trm(obj, par, use_pallas: Optional[bool] = None,
     def build(grad, u_old, batched):
         """Stage tables and the DP build; single solves drop the start axis."""
         if not batched:
-            stage, btilde = stage_tables(grad[0], u_old[0], levels, dt)
-            return (*build_tables(stage, btilde, jump, B, smax), btilde)
+            grad, u_old = grad[0], u_old[0]
         stage, btilde = stage_tables(grad, u_old, levels, dt)
+        if route == "sharded":
+            U, phi0 = build_tables_sharded(stage, btilde, jump, B, smax, mesh)
+            return U, phi0, pad_level_axis(stage, btilde, jump, D, B)[1]
+        if not batched:
+            return (*build_tables(stage, btilde, jump, B, smax), btilde)
         return (*build_tables_batched(stage, btilde, jump, B, smax), btilde)
 
     def chase_seq(U, phi0, btilde, caps, batched):
         """One candidate per start at ``caps (S,)`` → ``(S, nt, nx)``."""
         if not batched:
-            return backtrack(U, phi0, btilde, levels, caps[0])[0][None]
-        return backtrack_batched(U, phi0, btilde, levels, caps)[0]
+            return backtrack(U, phi0, btilde, levels_bt, caps[0])[0][None]
+        return backtrack_batched(U, phi0, btilde, levels_bt, caps)[0]
 
     def chase_wave(U, phi0, btilde, S, batched):
         """The K trials of every start → ``(S, K, nt, nx)``."""
         if not batched:
             U, phi0, btilde = U[None], phi0[None], btilde[None]
         if wave_chase == "trials" or S > 1:  # S table sets of K caps each
-            return backtrack_trials(U, phi0, btilde, levels, B_sched.expand(S, K))[0]
+            return backtrack_trials(U, phi0, btilde, levels_bt, B_sched.expand(S, K))[0]
         # K views of one table set (start stride 0)
         tables = [t[0].expand(K, *t.shape[1:]) for t in (U, phi0, btilde)]
-        return backtrack_batched(*tables, levels, B_sched)[0][None]
+        return backtrack_batched(*tables, levels_bt, B_sched)[0][None]
 
     def init_carry(x0s):
         S = x0s.shape[0]
@@ -501,8 +523,15 @@ def multistart_solve_device(obj, par, x0s, mesh=None, use_pallas: Optional[bool]
     ``outer_chunk`` (``None``, an int or ``"auto"``) segments like
     :func:`make_device_trm`; a segment ends when ALL starts have stopped.
     ``use_pallas`` and ``dp_backend`` as in :func:`make_device_trm`, at the
-    JAX package's positions; ``mesh`` and ``dp_backend="sharded"`` are not
-    ported."""
+    JAX package's positions.
+
+    With a ``mesh`` (a :class:`~mioc_tpu_torch.parallel.device_mesh.Mesh`
+    of ranks, every one of which must call this) the starts are split over
+    its ``"batch"`` axis (``S`` must be divisible by its size, else
+    ``ValueError``): each rank runs its block batched, segmented by
+    ``outer_chunk`` on its own, and the result's leaves are gathered over
+    ``"batch"``, so every rank returns all S starts.  ``dp_backend="sharded"``
+    also partitions each build of a block over the mesh's ``"level"`` axis."""
     if speculative is None:
         speculative = bool(getattr(obj, "_speculative_multistart", False))
     run = make_device_trm(obj, par, use_pallas=use_pallas, outer_chunk=outer_chunk,
@@ -511,5 +540,18 @@ def multistart_solve_device(obj, par, x0s, mesh=None, use_pallas: Optional[bool]
                           outer_unroll=outer_unroll or 1,
                           inner_unroll=inner_unroll or 1)
     x0s = torch.as_tensor(np.asarray(x0s), dtype=obj.dtype, device=obj.device)
-    return _profiled(par, obj.device, lambda: _to_numpy(
-        run.finalize(run(x0s, True, progress=progress)), single=False))
+    if mesh is not None:
+        nb = mesh.shape["batch"]
+        if len(x0s) % nb:
+            raise ValueError(f"{len(x0s)} starts are not divisible by the mesh's batch "
+                             f"axis of {nb}")
+        Sb = len(x0s) // nb
+        x0s = x0s[mesh.coord("batch") * Sb:][:Sb]
+
+    def solve():
+        res = run.finalize(run(x0s, True, progress=progress))
+        if mesh is not None:
+            res = DeviceTRMResult(*[mesh.all_gather(t, "batch").flatten(0, 1) for t in res])
+        return _to_numpy(res, single=False)
+
+    return _profiled(par, obj.device, solve)

@@ -3,8 +3,9 @@
 The registry lists the same names with the same presets; plugins are found
 and a broken one only warns.  ``mioc_tpu_torch.cli.main`` on the CPU prints
 the JSON line of ``mioc_tpu.cli.main`` run with the same arguments: J to
-rtol 1e-12, iterations and evaluation counts equal.  What the port does not
-have yet raises ``NotImplementedError`` naming its ROADMAP.md item.
+rtol 1e-12, iterations and evaluation counts equal.  Runs without
+``--no-plot`` write the JAX CLI's plot (and heat's animation) into the
+working directory.
 """
 
 import json
@@ -69,14 +70,37 @@ def test_cli_multistart_and_metrics(capsys, tmp_path):
     assert _json_line(capsys.readouterr().out)["converged"]
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["heat", "--n", "32", "--device-loop"], "item 7"),
-    (["fishing", "--n", "32"], "item 7"),
-    (["fishing", "--n", "32", "--no-plot", "--dp-backend", "sharded"], "item 6"),
-])
-def test_unported_parts_raise(argv, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue A {item}"):
-        cli.main(argv + ["--device", "cpu"])
+def _same_line(got, want):
+    for key in ("problem", "n", "iterations", "f_evals", "df_evals", "converged", "J"):
+        assert got[key] == want[key], key
+
+
+@pytest.mark.parametrize("argv,writes", [
+    (["heat", "--n", "32", "--device-loop"], ("results.png", "final-state.")),
+    (["fishing", "--n", "32"], ("results.png", "data_files/v(1).dat", "data_files/y(2).dat")),
+    (["fishing", "--n", "32", "--no-plot", "--dp-backend", "sharded"], ()),
+], ids=["heat-device-loop-plots", "fishing-plots", "fishing-sharded"])
+def test_unported_parts_raise(capsys, monkeypatch, tmp_path, argv, writes):
+    """The parts that once raised run now: a run without ``--no-plot``
+    writes the plot (heat: and its animation, a GIF without ffmpeg) and
+    prints the ``--no-plot`` run's line; ``--dp-backend sharded`` (a world
+    of one) prints the scan route's line."""
+    monkeypatch.chdir(tmp_path)
+    tail = ["--no-log", "--seed", "0", "--device", "cpu"]
+    assert cli.main(argv + tail) == 0
+    out = capsys.readouterr().out
+    got = _json_line(out)
+    plain = [a for a in argv if a not in ("--no-plot", "sharded", "--dp-backend")]
+    extra = ["--dp-backend", "scan"] if "sharded" in argv else []
+    assert cli.main(plain + ["--no-plot"] + extra + tail) == 0
+    _same_line(got, _json_line(capsys.readouterr().out))
+    files = sorted(str(p.relative_to(tmp_path)) for p in tmp_path.rglob("*") if p.is_file())
+    for want in writes:
+        assert any(f.startswith(want) for f in files), (want, files)
+    if not writes:
+        assert files == []
+    else:
+        assert "plot saved to results.png" in out
 
 
 @pytest.mark.parametrize("argv", [["fishing", "--n", "32"],
@@ -87,13 +111,17 @@ def test_unported_parts_raise(argv, item):
                                   ["mixed", "--n", "32", "--multistart", "2"]],
                          ids=["single", "multistart-1", "device-loop", "device-multistart",
                               "mixed", "mixed-multistart-2"])
-def test_runs_the_jax_cli_plots_raise_before_solving(monkeypatch, argv):
-    """Where the JAX CLI would plot (it holds an objective: a single solve,
-    any device-loop run, a mixed solve), a run without --no-plot raises
-    naming item 7 before any objective is built."""
-    monkeypatch.setattr(cli, "build_objective", lambda *a, **k: pytest.fail("solved"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 7"):
-        cli.main(argv + ["--no-log", "--device", "cpu"])
+def test_runs_the_jax_cli_plots_raise_before_solving(capsys, monkeypatch, tmp_path, argv):
+    """Where the JAX CLI plots (it holds an objective: a single solve, any
+    device-loop run, a mixed solve), a run without --no-plot solves and then
+    writes ``results.png`` and the controls' ``.dat`` exports."""
+    monkeypatch.chdir(tmp_path)
+    assert cli.main(argv + ["--no-log", "--seed", "0", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert _json_line(out)["n"] == 32
+    assert "plot saved to results.png" in out
+    assert (tmp_path / "results.png").stat().st_size > 0
+    assert (tmp_path / "data_files" / "v(1).dat").exists()
 
 
 def test_host_multistart_without_no_plot_runs(capsys):
@@ -112,8 +140,8 @@ def test_host_multistart_without_no_plot_runs(capsys):
 def test_dp_backend_flag(capsys):
     """The flag's values follow the solvers' rule (``solvers.trm.dp_route``):
     ``pallas`` and ``scan`` solve on the CPU, to the same result; ``scan``
-    is refused for the card before anything is built; the unported backends
-    name their item."""
+    is refused for the card before anything is built; ``sharded`` is taken
+    on both devices."""
     from mioc_tpu_torch.solvers.trm import dp_route
 
     argv = ["fishing", "--n", "32", "--device", "cpu"] + BASE
@@ -127,8 +155,8 @@ def test_dp_backend_flag(capsys):
     assert dp_route(None, None, torch.device("cuda")) == "pallas"
     with pytest.raises(ValueError, match="plain versions"):
         dp_route("scan", None, torch.device("cuda"))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        dp_route("sharded", None, torch.device("cpu"))
+    for dev in ("cpu", "cuda"):
+        assert dp_route("sharded", None, torch.device(dev)) == "sharded"
 
 
 def test_cli_defaults_to_cuda(monkeypatch):

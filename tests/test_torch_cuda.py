@@ -843,3 +843,56 @@ def test_temporal_route_solve_on_the_card(cuda_device):
     assert (res.iterations, res.inner_steps) == (ref.iterations, ref.inner_steps)
     np.testing.assert_array_equal(res.u, ref.u)
     np.testing.assert_allclose(res.J, ref.J, rtol=1e-12)
+
+
+@pytest.mark.parametrize("name,levels,nt,B,D", [
+    ("fishing", lambda: bounded_sum_levels([[0, 1]] * 3, 1, 1), 1024, 170, 4),
+    ("heat", lambda: product_levels([list(range(6))] * 2), 200, 40, 8),
+])
+def test_padded_table_chases_on_the_card(cuda_device, name, levels, nt, B, D):
+    """The level-sharded build's padded tables (L = 3 → 4, 36 → 40; here the
+    plain build of the padded inputs, which is what a sharded build returns)
+    chased on the card by ``chase``, ``chase_batched`` and ``chase_trials``:
+    the plain walk's indices, and the unpadded tables' (no padded row is
+    ever selected)."""
+    from mioc_tpu_torch.ops.backtrack_cuda import chase, chase_batched, chase_trials
+    from mioc_tpu_torch.parallel.shard_dp import pad_level_axis
+
+    adm = levels()
+    stage, btilde, jump, smax = _tables(adm, nt, B, torch.float64, torch.device("cpu"))
+    stage_p, btilde_p, jump_p, L = pad_level_axis(stage, btilde, jump, D, B)
+    assert stage_p.shape[1] == -(-L // D) * D > L
+    U, phi0 = (t.to(cuda_device) for t in tb.build_tables_plain(stage_p, btilde_p, jump_p, B, smax))
+    bt = btilde_p.to(cuda_device)
+    Uk, phik = tb.build_tables(stage.to(cuda_device), btilde.to(cuda_device),
+                               jump.to(cuda_device), B, smax)
+    caps = [B, B // 2, B // 4, 1, 0, -1]
+    for cap in caps:
+        want = tb.backtrack_plain(U.cpu(), phi0.cpu(), bt.cpu(), cap)
+        assert torch.equal(chase(U, phi0, bt, cap).cpu(), want), cap
+        assert torch.equal(chase(Uk, phik, btilde.to(cuda_device), cap).cpu(), want), cap
+    S = 3
+    Us, phis, bts = (t[None].expand(S, *t.shape).contiguous() for t in (U, phi0, bt))
+    per = torch.tensor(caps[:S], dtype=torch.int32, device=cuda_device)
+    got = chase_batched(Us, phis, bts, per).cpu()
+    for s in range(S):
+        assert torch.equal(got[s], tb.backtrack_plain(U.cpu(), phi0.cpu(), bt.cpu(), caps[s]))
+    trials = torch.tensor([caps, caps[::-1], caps], dtype=torch.int32, device=cuda_device)
+    got = chase_trials(Us, phis, bts, trials).cpu()
+    for s in range(S):
+        for k, cap in enumerate(trials[s].tolist()):
+            assert torch.equal(got[s, k], tb.backtrack_plain(U.cpu(), phi0.cpu(), bt.cpu(), cap))
+
+
+def test_two_rank_gloo_world_on_the_card(cuda_device, tmp_path):
+    """Two ranks share ``cuda:0`` over gloo (NCCL refuses two ranks on one
+    GPU): the level-sharded fishing tables equal ``dp_build``'s bit for bit
+    and chase to its paths (``test_torch_parallel.run_world``)."""
+    from test_torch_parallel import run_world
+
+    runs = run_world(2, tmp_path, ["cuda_tables"])["cuda_tables"]
+    for r in runs:
+        np.testing.assert_array_equal(r["U"], runs[0]["U"])
+        np.testing.assert_array_equal(r["U"], r["Uk"])
+        np.testing.assert_array_equal(r["phi"].view(np.int64), r["phik"].view(np.int64))
+        np.testing.assert_array_equal(r["idx"], r["idxk"])

@@ -244,11 +244,22 @@ def test_fem_benchmark_runs():
     assert set(out) == set(jf.fem_benchmark(refs=2, verbose=False))
 
 
-def test_visualization_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 7"):
-        tf.simple_test_FEM(hmax=0.5, visualize=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 7"):
-        tf.plot_shape_functions(tf.FE_Lagrange(1))
+def test_visualization_is_not_ported(monkeypatch, tmp_path):
+    """Once refused; the port's ``visualize=True`` and
+    ``plot_shape_functions`` now write what the JAX package's write: the
+    same VTK and PVD bytes, and the PNG surface plot."""
+    for name, fem in (("jax", jf), ("port", tf)):
+        (tmp_path / name).mkdir()
+        monkeypatch.chdir(tmp_path / name)
+        fem.simple_test_FEM(hmax=0.5, visualize=True)
+        fem.plot_shape_functions(fem.FE_Lagrange(1), refs=1)
+        assert (tmp_path / name / "Solution-Lagrange_3.png").stat().st_size > 0
+    files = sorted(p.name for p in (tmp_path / "jax").iterdir() if p.suffix in (".vtk", ".pvd"))
+    assert "Solution-Lagrange_3.vtk" in files and any(f.endswith(".pvd") for f in files)
+    assert files == sorted(p.name for p in (tmp_path / "port").iterdir()
+                           if p.suffix in (".vtk", ".pvd"))
+    for f in files:
+        assert (tmp_path / "port" / f).read_bytes() == (tmp_path / "jax" / f).read_bytes(), f
 
 
 def test_exports_equal():

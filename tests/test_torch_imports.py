@@ -1,8 +1,8 @@
 """The port stands alone: no JAX, no ``mioc_tpu``.
 
 An AST walk over every module of ``mioc_tpu_torch/`` and over
-``chip_smoke.py`` finds no import of ``jax``, ``jaxlib`` or ``mioc_tpu``;
-importing every module of the port in a fresh interpreter leaves ``jax``
+``chip_smoke.py`` and ``chip_multicard.py`` finds no import of ``jax``,
+``jaxlib`` or ``mioc_tpu``; importing every module of the port in a fresh interpreter leaves ``jax``
 out of ``sys.modules``.
 """
 
@@ -17,7 +17,7 @@ pytest.importorskip("torch")
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "mioc_tpu_torch"
-FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "chip_multicard.py"]
 FORBIDDEN = ("jax", "jaxlib", "mioc_tpu")
 
 
@@ -51,7 +51,9 @@ def test_port_modules_found():
             "fem/solve.py", "ops/detred.py", "ops/rows.py", "objectives/pde.py",
             "models/heat.py", "fem/sparse_device.py", "fem/banded_device.py",
             "fem/multigrid.py", "models/mixed_fishing.py", "solvers/continuous.py",
-            "solvers/mixed.py", "parallel/temporal.py", "ops/xla_order.py"} <= names
+            "solvers/mixed.py", "parallel/temporal.py", "ops/xla_order.py",
+            "parallel/device_mesh.py", "parallel/multihost.py", "parallel/shard_dp.py",
+            "utils/plotting.py", "utils/vtk.py"} <= names
     assert (ROOT / "chip_smoke.py").exists()
 
 

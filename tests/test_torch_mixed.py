@@ -298,10 +298,23 @@ def test_cli_mixed_prints_the_jax_result(capsys):
     assert lines[0].endswith(" seconds") and lines[1] == f"Objective Value: J = {got['J']}"
 
 
-def test_cli_mixed_without_no_plot_raises_before_solving(monkeypatch):
-    monkeypatch.setattr(cli, "build_objective", lambda *a, **k: pytest.fail("solved"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 7"):
-        cli.main(["mixed", "--n", "32", "--no-log", "--device", "cpu"])
+def test_cli_mixed_without_no_plot_raises_before_solving(capsys, monkeypatch, tmp_path):
+    """Once refused; the mixed CLI now plots after solving, as the JAX CLI
+    does: the same ``.dat`` exports, byte for byte (the continuous and the
+    integer controls and the normalized gradient), and a ``results.png``."""
+    argv = ["mixed", "--n", "32", "--seed", "0", "--no-log"]
+    for name, main, extra in (("jax", jcli.main, []), ("port", cli.main, ["--device", "cpu"])):
+        (tmp_path / name).mkdir()
+        monkeypatch.chdir(tmp_path / name)
+        assert main(argv + extra) == 0
+        assert "plot saved to results.png" in capsys.readouterr().out
+        assert (tmp_path / name / "results.png").stat().st_size > 0
+    dats = sorted(p.name for p in (tmp_path / "jax" / "data_files").iterdir())
+    assert dats == sorted(p.name for p in (tmp_path / "port" / "data_files").iterdir())
+    assert "u(1).dat" in dats and "v(1).dat" in dats
+    for d in dats:
+        assert ((tmp_path / "port" / "data_files" / d).read_bytes()
+                == (tmp_path / "jax" / "data_files" / d).read_bytes()), d
 
 
 # -- the NaN trap --------------------------------------------------------------

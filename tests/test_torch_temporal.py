@@ -179,8 +179,8 @@ def test_dp_route_takes_temporal_on_both_devices():
     for dev in (torch.device("cpu"), torch.device("cuda")):
         assert dp_route("temporal", None, dev) == "temporal"
         assert dp_route("temporal", False, dev) == "temporal"
-    with pytest.raises(NotImplementedError, match="item 6"):
-        dp_route("sharded", None, torch.device("cpu"))
+    for dev in (torch.device("cpu"), torch.device("cuda")):
+        assert dp_route("sharded", None, dev) == "sharded"
 
 
 def _json_line(out):

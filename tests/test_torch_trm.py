@@ -133,8 +133,20 @@ def test_dp_route_rule():
 
 @pytest.mark.parametrize("backend", ["sharded"])
 def test_unported_backends_raise(backend):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trm_solve(LVMObj(nt=20, device="cpu"), TRMParameters(dp_backend=backend))
+    """``"sharded"`` once raised; it runs now, by default in a world of one
+    with every rank on the level axis, and its solve is the scan route's;
+    an unknown name still raises."""
+    from mioc_tpu_torch.parallel import make_device_mesh
+
+    par = dict(beta=1e-4, delta0=2.0, p=np.inf)
+    ref = trm_solve(LVMObj(nt=20, device="cpu"), TRMParameters(**par, dp_backend="scan"), seed=3)
+    mesh = make_device_mesh(batch=1, level=1, device_type="cpu")
+    for kw in (dict(dp_backend=backend), dict(dp_backend=backend, mesh=mesh)):
+        got = trm_solve(LVMObj(nt=20, device="cpu"), TRMParameters(**par, **kw), seed=3)
+        assert (got.J, got.iterations, got.inner_steps, got.dp_builds) == (
+            ref.J, ref.iterations, ref.inner_steps, ref.dp_builds)
+        np.testing.assert_array_equal(got.u, ref.u)
+        np.testing.assert_array_equal(got.x_final, ref.x_final)
     with pytest.raises(ValueError):
         trm_solve(LVMObj(nt=20, device="cpu"), TRMParameters(dp_backend="nope"))
 

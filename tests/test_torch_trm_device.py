@@ -330,15 +330,29 @@ def test_entry_points_take_the_jax_argument_order(single_x0, port_single, port_m
 
 
 def test_unported_backends_raise():
+    """The sharded route and meshes once raised; in a world of one (a 1x1
+    mesh) they run now and give the ordinary route's results bit for bit:
+    both spellings of ``dp_backend="sharded"``, a multistart on a mesh (its
+    starts split over a batch axis of 1) and the step on a mesh."""
+    from mioc_tpu_torch.parallel import make_device_mesh
+
+    mesh = make_device_mesh(batch=1, level=1, device_type="cpu")
+    ref = trm_solve_device(_obj(20), TRMParameters(**PINF), seed=0)
+    for got in (trm_solve_device(_obj(20), TRMParameters(**PINF, dp_backend="sharded"), seed=0),
+                trm_solve_device(_obj(20), TRMParameters(**PINF), seed=0, dp_backend="sharded",
+                                 mesh=mesh)):
+        assert_same(got, ref, rtol=0)
+    x0s = _starts(20, 2)
+    many = multistart_solve_device(_obj(20), TRMParameters(**PINF), x0s)
+    for kw in (dict(mesh=mesh), dict(mesh=mesh, dp_backend="sharded")):
+        assert_same(multistart_solve_device(_obj(20), TRMParameters(**PINF), x0s, **kw),
+                    many, rtol=0)
     obj = _obj(20)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 6"):
-        trm_solve_device(obj, TRMParameters(dp_backend="sharded"), seed=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 6"):
-        trm_solve_device(obj, TRMParameters(), seed=0, dp_backend="sharded")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 6"):
-        multistart_solve_device(obj, TRMParameters(), _starts(20, 2), mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A item 6"):
-        make_ode_trm_step(obj, beta=1e-4, p=1, delta0=1.0, mesh=object())
+    u = torch.as_tensor(x0s)
+    want = make_ode_trm_step(obj, **PINF)(u)
+    got = make_ode_trm_step(obj, **PINF, mesh=mesh)(u)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())  # NaN where b has NaN
 
 
 def test_entry_points_default_to_cuda():
