@@ -75,7 +75,10 @@ Run from the root of a checkout.  It builds the CUDA kernels from
    iterations and evaluation counts, the quadratic's x within 1e-12
    (``REF_SD_ARMIJO``, ``REF_QUADRATIC``);
 4. times the batched sweeps (ms per batched f and ∇f at the batch sizes the
-   paths use);
+   paths use); then ``ode_bits``: the double tank, Van der Pol and Fuller
+   (also with its soft terminal condition) at nt=1024, f and ∇f at ``rand_func(obj, seed=0)`` bit-equal to the JAX
+   package's CPU values (``ODE_BITS``: ``float.hex`` of f, sha256 of ∇f),
+   with ms per batched f and ∇f at S = 1 and 32;
 5. holds the rows of ``ConvObj(nt=2048)``'s batched f and ∇f (1, 9 and 32
    rows) bit-equal to single evaluations, and reports whether one raw
    ``torch.matmul`` would have given each row the same bits (it is why the
@@ -103,7 +106,7 @@ Run from the root of a checkout.  It builds the CUDA kernels from
       device-loop constants, through one ``dp_build`` and one
       ``chase_batched`` per iteration;
    d. ``doubletank``, ``vanderpol`` and ``fuller`` at ``--n 1024 --seed
-      0``: the JAX package's constants;
+      0``: the JAX package's constants, J bit for bit;
    and prints where the time of (a) and (b) goes, the chases against the
    rest, with the A/B of the two chases at every shape;
 7. drives the heat problem, ``HeatObj(nt=500)`` (N = 545 P2 dofs from the
@@ -152,7 +155,14 @@ Run from the root of a checkout.  It builds the CUDA kernels from
    package's iterations, inner steps, evaluations and J (``LARGE_REF``),
    the device loops equal to the host loop's iterates and to each other
    field for field, through ``dp_build`` and ``chase`` (host and sequential)
-   or ``chase_trials`` (speculative) and no plain DP; the ELL engine's f
+   or ``chase_trials`` (speculative) and no plain DP; the batched
+   multistart over 8 starts (start 0 is the solves' seed 0) at the same cap,
+   sequential and speculative: every start's iterations and inner steps
+   equal to the JAX package's and J within 1e-12 (``LARGE8_*``), start 0
+   equal to ``LARGE_REF``, speculative equal to sequential field for field,
+   through ``dp_build_batched`` and ``chase_batched`` or ``chase_trials``
+   only, with each run's wall, ms per start, the wave's rows and the sparse
+   engine's rows per chunk, beside the ms per sweep at 1 and 8 rows; the ELL engine's f
    and ∇f at the same model against the banded engine's; then the kernels
    at nt=200, L=36, B=40 (single, S=8 batched, one table set's wave), where
    each large path's time goes, and last (a profiler trace slows every
@@ -934,6 +944,75 @@ def sweep_times(torch, x0s) -> dict:
     return out
 
 
+# The JAX package's f and ∇f of the double tank, Van der Pol and Fuller at
+# nt=1024, rand_func(obj, seed=0), on the CPU at float64 (the default
+# sweep_unroll 8): float.hex of f and the sha256 of ∇f's little-endian
+# float64 bytes, from
+#   JAX_PLATFORMS=cpu JAX_ENABLE_X64=1 python -c "import hashlib, numpy as np, jax.numpy as jnp
+#   from mioc_tpu.models import DTMObj, VPOObj, FullerObj
+#   from mioc_tpu.utils.init import rand_func
+#   for c in (DTMObj, VPOObj, FullerObj):
+#       o = c(nt=1024); o.x = jnp.asarray(rand_func(o, seed=0)); f = o.eval_f_(); o.eval_df_()
+#       print(c.__name__, float(f).hex(),
+#             hashlib.sha256(np.asarray(o.df, dtype='<f8').tobytes()).hexdigest())"
+# and "FullerT" (Fuller with the soft terminal condition, ODE_KW) from the
+# same command with FullerObj(nt=1024, terminal_weight=50.0).
+ODE_KW = {"FullerT": ("FullerObj", {"terminal_weight": 50.0})}
+ODE_BITS = {
+    "DTMObj": ("0x1.1f5a0aa98e351p+5",
+               "8e5771fc50bfc163a27b3cc12bb2d7b5a378e79afacc2e818d2112f28df40d2e"),
+    "VPOObj": ("0x1.71f93bf1bf34dp+1",
+               "429f4baf17704855105e83da1f183889a2fd9e693ab2266cd7edd3cded19e1fb"),
+    "FullerObj": ("0x1.4fbdf6e4b15b6p-15",
+                  "e3ce3cc6fa63b968790a7aa1aa8ac4f73a6a7c99a0abd12e984fb3b55565ebb7"),
+    "FullerT": ("0x1.40a01e061cc56p-9",
+                "c36bbf26d71cec6e4b54cfae31ea40cc72bfddf2fd1adc367e33ecfdd20a334b"),
+}
+
+
+def ode_bits(torch) -> dict:
+    """The double tank, Van der Pol and Fuller (also with its soft terminal
+    condition) on the card at nt=1024: f and ∇f at ``rand_func(obj,
+    seed=0)`` bit-equal to the JAX package's CPU values (:data:`ODE_BITS`),
+    and ms per batched f and ∇f at S = 1 and 32 rows (CUDA-event medians of
+    5, the sizes in turns)."""
+    import hashlib
+
+    from mioc_tpu_torch import models
+    from mioc_tpu_torch.ops import xla_order
+    from mioc_tpu_torch.utils.init import rand_func
+
+    out = {"phase": "ode_bits", "nt": 1024, "dtype": "float64",
+           "sqrt_rounds": xla_order.sqrt_rounds(DEVICE),
+           "addcmul_fuses": xla_order.addcmul_fuses(DEVICE), "models": {}}
+    for name, (f_hex, df_sha) in ODE_BITS.items():
+        cls, kw = ODE_KW.get(name, (name, {}))
+        obj = getattr(models, cls)(nt=1024, **kw)
+        X = torch.as_tensor(np.stack([rand_func(obj, seed=s) for s in range(32)]),
+                            dtype=obj.dtype, device=obj.device)
+        f, ys = obj._forward(X[0])
+        df, _ = obj._adjoint(X[0], ys)
+        got = (float(f).hex(), hashlib.sha256(
+            np.ascontiguousarray(df.cpu().numpy(), dtype="<f8").tobytes()).hexdigest())
+        times = {"f": {}, "df": {}}
+        for S in (1, 32, 32, 1):
+            _, ysb = obj._forward_batch(X[:S])
+            times["f"].setdefault(S, []).extend(
+                median_ms(torch, lambda: obj._forward_batch(X[:S]), 5))
+            times["df"].setdefault(S, []).extend(
+                median_ms(torch, lambda: obj._adjoint_batch(X[:S], ysb), 5))
+        out["models"][name] = {
+            "f_hex": got[0], "df_sha256": got[1], "jax_f_hex": f_hex, "jax_df_sha256": df_sha,
+            "bit_equal": got == (f_hex, df_sha),
+            "f_ms": {S: statistics.median(v) for S, v in times["f"].items()},
+            "df_ms": {S: statistics.median(v) for S, v in times["df"].items()}}
+    emit(out)
+    for name, r in out["models"].items():
+        require(r["bit_equal"], f"{name}: f and ∇f at nt=1024 bit-equal to the JAX "
+                f"package's ({r['f_hex']} {r['df_sha256'][:16]})")
+    return out
+
+
 def conv_rows(torch) -> dict:
     """ConvObj(nt=2048) on the card: rows of 1-, 9- and 32-row batched f and
     ∇f bit-equal to single evaluations (the speculative wave decides on
@@ -1008,14 +1087,20 @@ def run_cli(torch, name, args, chase_variant=None) -> dict:
     return res
 
 
-def check_cli(res, ref_key) -> None:
+def check_cli(res, ref_key, exact=False) -> None:
+    """The JAX constants of ``CLI_REFS``; J to rtol 1e-12, or bit for bit
+    where ``exact`` (the ODE models whose sweeps round as the JAX
+    package's)."""
     J, its, f_evals, df_evals = CLI_REFS[ref_key]
     name = res["path"]
     require(res["converged"], f"{name}: converged")
     require((res["iterations"], res["f_evals"], res["df_evals"]) == (its, f_evals, df_evals),
             f"{name}: iterations/f_evals/df_evals {res['iterations']}/{res['f_evals']}/"
             f"{res['df_evals']} == JAX {its}/{f_evals}/{df_evals}")
-    require(abs(res["J"] - J) <= 1e-12 * abs(J), f"{name}: J {res['J']!r} == JAX {J!r}")
+    if exact:
+        require(res["J"] == J, f"{name}: J {res['J']!r} == JAX {J!r} bit for bit")
+    else:
+        require(abs(res["J"] - J) <= 1e-12 * abs(J), f"{name}: J {res['J']!r} == JAX {J!r}")
 
 
 def cli_paths(torch, tmp) -> dict:
@@ -1050,7 +1135,7 @@ def cli_paths(torch, tmp) -> dict:
     out["conv_device"] = r
     for problem in ("doubletank", "vanderpol", "fuller"):
         r = run_cli(torch, problem, [problem, "--n", "1024"] + base)
-        check_cli(r, f"{problem} --n 1024")
+        check_cli(r, f"{problem} --n 1024", exact=True)
         n = r["launches"]
         require(n["dp_build"] == r["iterations"] and n["chase"] == r["f_evals"] - 1,
                 f"{problem}: launches {n}")
@@ -1258,6 +1343,27 @@ LARGE_DF_B64 = (
 # seed=0)): iterations, inner steps, f and ∇f evaluations, J.
 LARGE_MAXITER = 2
 LARGE_REF = (2, 2, 3, 3, 1584.0058808074555)
+# The batched multistart over 8 starts rand_func(o, seed=s), s = 0 … 7 (start 0
+# is LARGE_REF's), capped likewise: the JAX package's multistart_solve_device
+# on the CPU at float64 (o as above), per start iterations, inner steps and J,
+# from
+#   JAX_PLATFORMS=cpu python -c "import jax, numpy as np
+#   jax.config.update('jax_enable_x64', True)
+#   from mioc_tpu.models.heat import HeatObj, construct_mesh_hierarchy
+#   from mioc_tpu.solvers.trm import TRMParameters
+#   from mioc_tpu.solvers.trm_device import multistart_solve_device
+#   from mioc_tpu.utils.init import rand_func
+#   o = HeatObj(nt=200, mesh_hierarchy=construct_mesh_hierarchy(refinements=5),
+#               solver='mg', cg_iters=12, sparse_format='banded')
+#   x0s = np.stack([rand_func(o, seed=s) for s in range(8)])
+#   r = multistart_solve_device(o, TRMParameters(beta=1e-3, delta0=2.0, p=2, maxiter=2),
+#                               x0s, speculative=False)
+#   print(r.iterations.tolist(), r.inner_steps.tolist(), [float(j) for j in r.J])"
+LARGE_STARTS = 8
+LARGE8_ITERATIONS = (2, 2, 2, 2, 2, 2, 2, 2)
+LARGE8_INNER = (2, 2, 2, 2, 2, 2, 2, 2)
+LARGE8_J = (1584.0058808074534, 975.256622046466, 1002.1950928111586, 993.6988913149524,
+            960.9964459449658, 1472.812628818561, 1082.9937148698289, 1159.4756630782053)
 LARGE_TOL_F = 8e-14
 LARGE_TOL_DF = 2.1e-13
 LARGE_TOL_ELL_F = 1.1e-13
@@ -1552,8 +1658,9 @@ def large_values(torch, obj, x0) -> dict:
 
 
 def large_rows(torch, obj, x0s, single0) -> dict:
-    """Rows bit-equal to single evaluations: at nt=200, a 16-row batch of
-    two controls in alternation; at the cut depth :data:`LARGE_ROWS_NT`,
+    """Rows bit-equal to single evaluations: at nt=200, 8- and 16-row
+    batches of two controls in alternation (the seconds of a sweep at 1, 8
+    and 16 rows); at the cut depth :data:`LARGE_ROWS_NT`,
     every count of :data:`LARGE_ROWS` over three controls in a shifting
     order; whether one banded product at the natural width (the rows, no
     padding) would give each row its single bits; the ms of the batched f
@@ -1570,9 +1677,28 @@ def large_rows(torch, obj, x0s, single0) -> dict:
                    for r, i in enumerate(idx))
 
     X = torch.as_tensor(x0s, dtype=obj.dtype, device=obj.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     f1, y1 = obj._forward(X[1])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
     d1, l1 = obj._adjoint(X[1], y1)
+    torch.cuda.synchronize()
+    timed = {"forward1_s": t1 - t0, "adjoint1_s": time.perf_counter() - t1}
     singles = [single0, (f1, y1, d1, l1)]
+    idx8 = [r % 2 for r in range(8)]
+    t0 = time.perf_counter()
+    f8, ys8 = obj._forward_batch(X[idx8])
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    df8, lam8 = obj._adjoint_batch(X[idx8], ys8)
+    torch.cuda.synchronize()
+    timed.update(forward8_s=t1 - t0, adjoint8_s=time.perf_counter() - t1)
+    ok8 = all(torch.equal(bits(f8[r], torch), bits(singles[i][0], torch))
+              and torch.equal(bits(ys8[:, r], torch), bits(singles[i][1], torch))
+              and torch.equal(bits(df8[r], torch), bits(singles[i][2], torch))
+              and torch.equal(bits(lam8[r], torch), bits(singles[i][3], torch))
+              for r, i in enumerate(idx8))
     idx16 = [r % 2 for r in range(16)]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1604,10 +1730,12 @@ def large_rows(torch, obj, x0s, single0) -> dict:
         got = E.K(V[idx])
         raw[R] = all(torch.equal(bits(got[r], torch), bits(E.K(V[i:i + 1])[0], torch))
                      for r, i in enumerate(idx))
-    out = {"rows_bit_equal_nt200_16": ok16, "rows_bit_equal_cut": rows,
+    out = {"rows_bit_equal_nt200_16": ok16, "rows_bit_equal_nt200_8": ok8,
+           "rows_bit_equal_cut": rows,
            "cut_nt": LARGE_ROWS_NT, "natural_width_product_rows_bit_equal": raw,
-           "forward16_s": t1 - t0, "adjoint16_s": t2 - t1}
+           "forward16_s": t1 - t0, "adjoint16_s": t2 - t1, **timed}
     require(ok16, "heat_large: the 16 rows of a batch (nt=200) bit-equal to singles")
+    require(ok8, "heat_large: the 8 rows of a batch (nt=200) bit-equal to singles")
     for R, ok in rows.items():
         require(ok, f"heat_large: rows of a {R}-row batch (nt={LARGE_ROWS_NT}) bit-equal")
     return out
@@ -1705,6 +1833,74 @@ def large_solves(torch, obj) -> dict:
     return out
 
 
+def large_multistart(torch, obj, rows) -> dict:
+    """``multistart_solve_device`` over :data:`LARGE_STARTS` starts
+    ``rand_func(obj, seed=s)`` (start 0 is :data:`LARGE_REF`'s) under the
+    heat preset capped at :data:`LARGE_MAXITER`, sequential and speculative:
+    every start's iterations and inner steps equal to the JAX package's and J
+    within 1e-12 (``LARGE8_*``), start 0 equal to :data:`LARGE_REF`, the
+    speculative run equal to the sequential one field for field, through
+    ``dp_build_batched`` and ``chase_batched`` (sequential) or
+    ``chase_trials`` (speculative) only and no plain DP.  Each run's wall,
+    ms per start, its sweeps by row count, the wave's rows and the rows per
+    chunk of the sparse engine; ``rows`` gives the ms per sweep at 1 and 8
+    rows (:func:`large_rows`)."""
+    from mioc_tpu_torch.ops.rows import ROWS
+    from mioc_tpu_torch.solvers.trm import TRMParameters
+    from mioc_tpu_torch.solvers.trm_device import DeviceTRMResult, multistart_solve_device
+    from mioc_tpu_torch.utils.init import rand_func
+
+    x0s = np.stack([rand_func(obj, seed=s) for s in range(LARGE_STARTS)])
+    par = TRMParameters(**HEAT_PRESET, maxiter=LARGE_MAXITER)
+    ms_per_sweep = {S: {"f": 1e3 * rows[f"forward{S}_s"], "df": 1e3 * rows[f"adjoint{S}_s"]}
+                    for S in (1, 8)}
+    out, res = {}, {}
+    for spec in (False, True):
+        name = "multistart_speculative" if spec else "multistart_sequential"
+        sweeps = count_sweeps(obj)
+        read = zero_counts(torch)
+        t0 = time.perf_counter()
+        r = multistart_solve_device(obj, par, x0s, speculative=spec)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, plain = read()
+        del obj._forward_batch, obj._adjoint_batch  # count_sweeps' wrappers
+        res[spec] = r
+        wave_rows = max(sweeps["f"])
+        out[name] = {"S": LARGE_STARTS, "maxiter": LARGE_MAXITER, "J": r.J.tolist(),
+                     "iterations": r.iterations.tolist(), "inner_steps": r.inner_steps.tolist(),
+                     "f_evals": r.f_evals.tolist(), "df_evals": r.df_evals.tolist(),
+                     "launches": launches, "plain_calls_on_card": plain,
+                     "sweeps": {k: dict(v) for k, v in sweeps.items()}, "wall_s": wall,
+                     "ms_per_start": 1e3 * wall / LARGE_STARTS,
+                     "ms_per_sweep_from_rows": ms_per_sweep, "rows_per_chunk": ROWS,
+                     "largest_forward_rows": wave_rows,
+                     "chunks_of_largest_forward": -(-wave_rows // ROWS)}
+        its = int(r.iterations.max())
+        wave = "chase_trials" if spec else "chase_batched"
+        require(launches["dp_build_batched"] == its and launches[wave] >= its
+                and not any(v for k, v in launches.items()
+                            if k not in ("dp_build_batched", wave)),
+                f"heat_large {name}: {its} dp_build_batched and the {wave} chases only: "
+                f"{launches}")
+        require(not any(plain.values()), f"heat_large {name}: no plain DP on the card: {plain}")
+        for s in range(LARGE_STARTS):
+            require((int(r.iterations[s]), int(r.inner_steps[s])) ==
+                    (LARGE8_ITERATIONS[s], LARGE8_INNER[s]),
+                    f"heat_large {name} start {s}: iterations/inner "
+                    f"{int(r.iterations[s])}/{int(r.inner_steps[s])} == JAX")
+            require(abs(float(r.J[s]) - LARGE8_J[s]) <= 1e-12 * abs(LARGE8_J[s]),
+                    f"heat_large {name} start {s}: J {float(r.J[s])!r} == JAX {LARGE8_J[s]!r}")
+        its0, inner0, _, _, J0 = LARGE_REF
+        require((int(r.iterations[0]), int(r.inner_steps[0])) == (its0, inner0)
+                and abs(float(r.J[0]) - J0) <= 1e-12 * abs(J0),
+                f"heat_large {name}: start 0 == LARGE_REF")
+    for field in DeviceTRMResult._fields:
+        require(np.array_equal(getattr(res[True], field), getattr(res[False], field)),
+                f"heat_large multistart: speculative == sequential: {field}")
+    return out
+
+
 def large_ell(torch, hier, x0, f, df) -> dict:
     """The ELL engine at the same model: f and ∇f at ``x0`` against the
     banded engine's (``f``, ``df``) within the measured tolerance."""
@@ -1760,6 +1956,7 @@ def heat_large(torch) -> dict:
     out["rows"] = large_rows(torch, obj, x0s, single0)
     out["apply"] = large_apply_ms(torch, obj)
     out["solves"] = large_solves(torch, obj)
+    out["solves"].update(large_multistart(torch, obj, out["rows"]))
     out["ell"] = large_ell(torch, hier, x0s[0], single0[0], single0[2])
     out["peak_device_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     emit(out)
@@ -2605,6 +2802,7 @@ def main() -> int:
     check_multistarts(seq, spec, single)
     multi = multi_rank(torch, host, seq)
     sweeps = sweep_times(torch, x0s)
+    ode_bits(torch)
     conv = conv_rows(torch)
     import tempfile
 
@@ -2728,13 +2926,17 @@ def main() -> int:
                        **{k: large_batched[k]["kernel_ms"] for k in (
                            "dp_build_batched", "chase_batched")}}
     sweep_s = {("f", 1): large["values"]["forward_s"], ("df", 1): large["values"]["adjoint_s"],
+               ("f", 8): large["rows"]["forward8_s"], ("df", 8): large["rows"]["adjoint8_s"],
                ("f", 16): large["rows"]["forward16_s"], ("df", 16): large["rows"]["adjoint16_s"]}
     large_launches = {}
     for name, r in large["solves"].items():
         large_launches[name] = r["launches"]
         kernels_s = {k: n * large_kernel_ms[k] / 1e3 for k, n in r["launches"].items() if n}
-        # A batch of up to 16 rows is one chunk: it costs a 16-row sweep.
-        sw = {kind: sum(n * sweep_s[kind, 1 if R == 1 else 16] for R, n in r["sweeps"][kind].items())
+        # A batch of up to 16 rows is one chunk (timed at 8 and 16 rows), a
+        # larger batch one 16-row sweep per chunk.
+        sw = {kind: sum(n * (sweep_s[kind, R] if R in (1, 8)
+                             else -(-R // 16) * sweep_s[kind, 16])
+                        for R, n in r["sweeps"][kind].items())
               for kind in ("f", "df")}
         emit({"phase": "where_the_time_goes", "path": f"heat_large_{name}", "wall_s": r["wall_s"],
               "sweeps_s_estimate": sw, "kernels_s_estimate": kernels_s,

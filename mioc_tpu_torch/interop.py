@@ -72,15 +72,24 @@ def admissible_from_arrays(V, indices, levels) -> AdmissibleSet:
     )
 
 
+def _with_unroll(obj, params: Mapping):
+    """``obj`` with the JAX object's ``sweep_unroll`` where ``params`` gives
+    it (the JAX idiom ``obj.sweep_unroll = u; obj._build()``)."""
+    if "sweep_unroll" in params:
+        obj.sweep_unroll = int(np.asarray(params["sweep_unroll"]))
+        obj._build()
+    return obj
+
+
 def lvm_from_params(params: Mapping, *, device=None, dtype=None) -> LVMObj:
     """A port :class:`~mioc_tpu_torch.models.LVMObj` with the numeric
     parameters ``params`` (keys :data:`LVM_PARAMS`, values numbers or numpy
-    arrays)."""
+    arrays; an optional ``sweep_unroll`` is carried across)."""
     missing = [k for k in LVM_PARAMS if k not in params]
     if missing:
         raise KeyError(f"missing fishing parameters: {missing}")
     p = {k: np.asarray(params[k]) for k in LVM_PARAMS}
-    return LVMObj(
+    return _with_unroll(LVMObj(
         int(p["nt"]),
         alpha=float(p["alpha"]), beta=float(p["beta"]),
         gamma=float(p["gamma"]), delta=float(p["delta"]),
@@ -88,7 +97,7 @@ def lvm_from_params(params: Mapping, *, device=None, dtype=None) -> LVMObj:
         v1=p["v1"], v2=p["v2"], state0=p["state0"],
         T0=float(p["T0"]), T1=float(p["T1"]),
         device=device, dtype=dtype,
-    )
+    ), params)
 
 
 def tables_from_pallas(U, phi0, *, nt: int, L: int, B: int, device=None):
@@ -122,7 +131,9 @@ def objective_from_params(name: str, params: Mapping, *, device=None, dtype=None
     the port's own mesh and assembly; with ``solver_mode`` ``"cg"`` or
     ``"mg"`` in ``params``, :data:`HEAT_SPARSE_OPERATORS` and
     :data:`HEAT_ENGINE` (plus ``dof_perm`` and ``prolongations`` where
-    given) build the port's sparse engine on them instead."""
+    given) build the port's sparse engine on them instead.  For the ODE
+    problems an optional ``sweep_unroll`` (the JAX object's) is carried
+    across."""
     if name not in PROBLEM_PARAMS:
         raise KeyError(f"no parameter set for problem {name!r}; "
                        f"known: {sorted(PROBLEM_PARAMS)}")
@@ -134,16 +145,18 @@ def objective_from_params(name: str, params: Mapping, *, device=None, dtype=None
     p = {k: np.asarray(params[k]) for k in PROBLEM_PARAMS[name]}
     nt, kw = int(p["nt"]), dict(device=device, dtype=dtype)
     if name == "doubletank":
-        return DTMObj(nt, k1=float(p["k1"]), k2=float(p["k2"]), c=p["c"],
-                      state0=p["state0"], **kw)
+        return _with_unroll(DTMObj(nt, k1=float(p["k1"]), k2=float(p["k2"]), c=p["c"],
+                                   state0=p["state0"], **kw), params)
     if name == "vanderpol":
-        return VPOObj(nt, c=p["c"], state0=p["state0"], **kw)
+        return _with_unroll(VPOObj(nt, c=p["c"], state0=p["state0"], **kw), params)
     if name == "mixed":
-        return LVMMixedObj(nt, **{k: float(p[k]) for k in PROBLEM_PARAMS[name][1:9]},
-                           v1=p["v1"], v2=p["v2"], state0=p["state0"], **kw)
+        return _with_unroll(
+            LVMMixedObj(nt, **{k: float(p[k]) for k in PROBLEM_PARAMS[name][1:9]},
+                        v1=p["v1"], v2=p["v2"], state0=p["state0"], **kw), params)
     if name == "fuller":
-        return FullerObj(nt, state0=p["state0"], terminal_weight=float(p["terminal_weight"]),
-                         terminal_frac=float(p["terminal_frac"]), **kw)
+        return _with_unroll(
+            FullerObj(nt, state0=p["state0"], terminal_weight=float(p["terminal_weight"]),
+                      terminal_frac=float(p["terminal_frac"]), **kw), params)
     if name == "heat":
         scalars = {k: float(p[k]) for k in PROBLEM_PARAMS["heat"][1:]}
         if str(params.get("solver_mode", "dense")) in ("cg", "mg"):

@@ -16,15 +16,23 @@ relaxed controls alike:
   :func:`~mioc_tpu_torch.ops.xla_order.window_sum`;
 * the adjoint step is ``fma(τ, Fyᵀλ − (y − 1), λ)`` with ``Fyᵀλ =
   (fma(S₀, λ₀, δy₁·λ₁), fma(S₁, λ₁, −βy₀·λ₀))``, ``S`` the bracketed
-  factors of F; a gradient entry is ``fma(c₂y₁·w₂, λ₁, c₁y₀·w₁·λ₀)``.
+  factors of F — except where the JAX scan's place of the step says
+  ``fma(δy₁, λ₁, S₀λ₀)`` for the first sum (every step at
+  ``sweep_unroll`` 1, every other step at 2; the table ``_ADJ``, read
+  through :func:`~mioc_tpu_torch.objectives.ode.scan_rules`); a gradient
+  entry is ``fma(c₂y₁·w₂, λ₁, c₁y₀·w₁·λ₀)``.
 
 The state is an ``(S, 2)`` tensor and both components step together
 (``S = fma(K1, y_swapped, K0) − A`` with ``K0 = (α, −γ)``, ``K1 = (−β,
 δ)``, ``A`` the couplings): 5 small ops a forward step, 11 an adjoint step.
 The tests hold the bits against the JAX package at nt = 32 … 1200
-(``tests/test_torch_tv_ode.py``).  Where the JAX scan's last unrolled body
-has 3 steps (nt = 60, 100) its last adjoint step can round otherwise: there
-∇f at the first step agrees to rounding only.
+(``tests/test_torch_tv_ode.py``), at unroll 1, 2 and 4, and at nt = 33 …
+40 at every unroll (``tests/test_torch_ode_bits.py``).  The steps JAX
+leaves after the last trip of a scan run as straight code, which XLA fuses
+with its neighbours;
+where 7 forward or 6 adjoint steps are left (unroll 8 at nt = 39, 47, 63,
+…) a state or λ of the first steps can round otherwise, and ∇f there
+agrees to rounding only.
 """
 
 from __future__ import annotations
@@ -39,8 +47,18 @@ from ..ops.xla_order import const_dot, fma, window_sum
 
 __all__ = ["LVMObj"]
 
+# Per adjoint step in scan order, which product of (Fyᵀλ)₀ = S₀λ₀ + δy₁λ₁ is
+# fused: "4" the first, "5" the second (scan_rules; read off the JAX sweeps
+# at nt = 32 … 1024).
+_ADJ = {1: {"body": "5", "rest": "5"},
+        2: {"body": "54", 1: "4", "rest": "4"},
+        4: {"body": "4444", 2: "45", 3: "445", "rest": "4"},
+        8: {"body": "4" * 8, 2: "45", "rest": "4"},
+        "straight": {"rest": "4"}}
+
 
 class LVMObj(RowwiseODEObjective):
+    _adjoint_rules = _ADJ
     def __init__(
         self,
         nt: int = 1200,
@@ -151,12 +169,18 @@ class LVMObj(RowwiseODEObjective):
         K1f = K1.flip(-1)  # (δ, −β)
         lam = -0.5 * tau * (ys[-1] - 1.0)  # ODEObjective.jl:165-166
         lams = [lam]
-        for k in range(nt - 2, -1, -1):  # uses (y_{k+1}, u_{k+1}) = (ys[k], x[k+1])
+        rules = self.adjoint_rules()
+        for i, rule in enumerate(rules):
+            k = nt - 2 - i  # uses (y_{k+1}, u_{k+1}) = (ys[k], x[k+1])
             y = ys[k]
             yf = y.flip(-1)
             s = fma(K1, yf, K0) - A[k + 1]
-            # (S₀λ₀ + (δy₁)λ₁, S₁λ₁ + (−βy₀)λ₀)
-            ft = fma(s, lam, (K1f * yf) * lam.flip(-1))
+            c = K1f * yf  # (δy₁, −βy₀)
+            if rule == "4":  # (fma(S₀, λ₀, δy₁·λ₁), fma(S₁, λ₁, −βy₀·λ₀))
+                ft = fma(s, lam, c * lam.flip(-1))
+            else:  # (fma(δy₁, λ₁, S₀λ₀), fma(S₁, λ₁, −βy₀·λ₀))
+                ft = fma(torch.cat([c[:, :1], s[:, 1:]], dim=-1), lam[:, 1:],
+                         lam[:, :1] * torch.cat([s[:, :1], c[:, 1:]], dim=-1))
             lam = fma(ft - (y - 1.0), self._tau_t, lam)
             lams.append(lam)
         lam = torch.stack(lams[::-1], dim=1)  # (S, nt, ny), 0-based k

@@ -28,18 +28,23 @@ the products with α, β, γ, δ, c₁ and c₂ are exact:
   :func:`~mioc_tpu_torch.ops.xla_order.window_sum`;
 * the adjoint step is ``fma(τ, Fyᵀλ − (y − 1), λ)``; ``Fyᵀλ`` rounds both
   products, except at the last step of each unrolled body of the JAX scan
-  (every 8th step, and the last step of the scan), where its two sums are
-  ``fma(λ₀, S₀, y₁λ₁)`` and ``fma(−y₀, λ₀, λ₁S₁)``;
-* the gradient's ``c`` column is ``fma(2ρ, c, y₀λ₀)`` and a ``v`` column
-  ``fma(y₁c₂w₂, λ₁, y₀c₁w₁·λ₀)``.
+  (every ``sweep_unroll``-th step, and the last step of the scan; the
+  table ``_ADJ``, read through
+  :func:`~mioc_tpu_torch.objectives.ode.scan_rules`), where its two sums
+  are ``fma(λ₀, S₀, y₁λ₁)`` and ``fma(−y₀, λ₀, λ₁S₁)``;
+* the gradient's ``c`` column is ``fma(2ρ, c, fma(−0, λ₁, y₀λ₀))`` (XLA's
+  dot of −F_u with λ keeps the zero's product: NaN where λ₁ overflows) and
+  a ``v`` column ``fma(y₁c₂w₂, λ₁, y₀c₁w₁·λ₀)``.
 
 So f, ∇f and the states equal the JAX package's bit for bit on the CPU, and
 the card gives the same bits.  The rules hold on grids with ``nt ≥ 32``
 (below, the JAX sweeps' trapezoid sum is one fused reduction that rounds
-otherwise); the tests hold nt = 32, 48, 57, 240 and 1024
-(``tests/test_torch_mixed.py``).  Where the scan's last
-unrolled body has 3 steps (nt = 36, 100) its last step can round otherwise,
-so there the adjoint at the first step agrees to rounding only.
+otherwise); the tests hold nt = 32, 48, 57, 240 and 1024 at unroll 8
+(``tests/test_torch_mixed.py``) and 1, 2, 4, and nt = 33 … 40 at 1, 2, 4
+and 8 (``tests/test_torch_ode_bits.py``).  Where the scan's remainder has 3
+steps (unroll 8 at nt = 36, 100; unroll 4 at nt = 40) its last step can
+round otherwise, so there the adjoint at the first step agrees to rounding
+only.
 """
 
 from __future__ import annotations
@@ -52,14 +57,19 @@ from ..objectives.ode import RowwiseODEObjective, _numpy_dtype, const_dot
 from ..ops.levels import bounded_sum_levels
 from ..ops.xla_order import fma, window_sum
 
-# The JAX sweeps' scan unroll (mioc_tpu.objectives.ode.ODEObjective's
-# sweep_unroll default): the adjoint's contraction pattern repeats with it.
-_UNROLL = 8
+# Per adjoint step in scan order: "L" the last-step form of Fyᵀλ (one
+# product of each sum fused), "R" both products rounded (scan_rules; read off
+# the JAX sweeps at nt = 32 … 1024).
+_ADJ = {u: {"body": "R" * (u - 1) + "L", **{r: "R" * (r - 1) + "L" for r in range(1, u)},
+            "rest": "R"} for u in (1, 2, 4, 8)}
+_ADJ["straight"] = {"rest": "R", "last": "L"}
 
 __all__ = ["LVMMixedObj"]
 
 
 class LVMMixedObj(RowwiseODEObjective):
+    _adjoint_rules = _ADJ
+
     def __init__(self, nt: int = 600, *, cmax=0.3, rho=0.05,
                  alpha=1.0, beta=1.0, gamma=1.0, delta=1.0,
                  c1=1.0, c2=1.0, v1=(0.2, 0.4, 0.01), v2=(0.1, 0.2, 0.1),
@@ -176,11 +186,12 @@ class LVMMixedObj(RowwiseODEObjective):
         sign = torch.tensor([1.0, -1.0], dtype=xs.dtype, device=xs.device)
         lam = -0.5 * tau * (ys[-1] - 1.0)  # ODEObjective.jl:165-166
         lams = [lam]
-        for i in range(nt - 1):
+        rules = self.adjoint_rules()
+        for i, rule in enumerate(rules):
             k = nt - 2 - i  # uses (y_{k+1}, u_{k+1}) = (ys[k], x[k+1])
             y = ys[k]
             s = self._S(y, A1[k + 1], A2[k + 1], K0, K1)
-            if i % _UNROLL == _UNROLL - 1 or i == nt - 2:
+            if rule == "L":
                 y0, y1, l0, l1 = y[:, 0], y[:, 1], lam[:, 0], lam[:, 1]
                 ft = torch.stack([fma(l0, s[:, 0], y1 * l1),
                                   fma(-y0, l0, l1 * s[:, 1])], dim=-1)
@@ -195,7 +206,9 @@ class LVMMixedObj(RowwiseODEObjective):
     def df_rows(self, ys0, x, lam):
         y0, y1 = ys0[..., 0:1], ys0[..., 1:2]
         l0, l1 = lam[..., 0:1], lam[..., 1:2]
+        # −F_u's c column is (y₀, −0): XLA's dot keeps the zero's product,
+        # which is NaN where λ₁ is infinite.
         dc = fma(torch.tensor(2.0 * self.rho, dtype=x.dtype, device=x.device),
-                 x[..., 0:1], y0 * l0)
+                 x[..., 0:1], fma(torch.full_like(l1, -0.0), l1, y0 * l0))
         dv = fma(y1 * self._cv2, l1, (y0 * self._cv1) * l0)
         return torch.cat([dc, dv], dim=-1)

@@ -29,11 +29,9 @@ Users implement ``F(y, u, i)`` and ``G(y, u, i)`` for one row only; the
 Jacobians default to ``torch.func`` (``jacfwd``, ``vjp``, ``grad``) of those,
 and the batched hooks (:meth:`F_step`, :meth:`FyT_lam_step`, :meth:`G_rows`,
 :meth:`Gy_rows`, :meth:`df_rows`) default to ``torch.func.vmap`` of the
-per-row functions, so any model gets the batched sweeps.  A model whose
-functions work on the last axis overrides the hooks with code that needs no
-vmap (:class:`RowwiseODEObjective`, the base of every bundled model), and
-may precompute control-only terms for all steps at once (:meth:`step_terms`),
-keeping the per-step order of operations.
+per-row functions, so any model gets the batched sweeps.  The bundled
+models (:class:`RowwiseODEObjective`) write their own sweeps instead, in the
+rounding of the JAX package's compiled CPU sweeps.
 
 :meth:`ODEObjective.test_Fy` and :meth:`ODEObjective.test_Fu` check a
 model's Jacobians against forward differences of ``F`` (the reference's
@@ -67,6 +65,32 @@ def _numpy_dtype(dtype: torch.dtype):
     return np.float64 if dtype == torch.float64 else np.float32
 
 
+def scan_rules(rules: dict, n: int, unroll: int) -> str:
+    """One rule letter per step of a ``lax.scan`` of ``n`` steps unrolled
+    ``unroll`` times, in scan order.  JAX runs ``n // unroll`` trips of a
+    loop whose body holds ``unroll`` steps, then the ``n % unroll`` steps
+    left as straight code after the loop; when one trip would hold them all
+    (``unroll ≥ n``, ``unroll ≠ 1``) there is no loop and all ``n`` steps are
+    straight code, the same program for every such unroll
+    (``jax._src.lax.control_flow.loops._scan_impl``).  XLA's CPU code
+    contracts a step's products into fused multiply-adds by its place there.
+    ``rules[unroll]`` maps ``"body"`` to the letters of one trip and a
+    remainder length to the letters of that remainder; a remainder it lacks
+    takes ``rules[unroll]["rest"]`` (a default letter).  ``rules["straight"]``
+    maps a length ``n`` to the letters of a scan that is straight code
+    throughout; a length it lacks takes its ``"rest"``, but its ``"last"``
+    (where given) at the scan's last step.  An unroll without rules raises
+    ``KeyError``."""
+    trips, rem = divmod(n, unroll)
+    if unroll != 1 and trips <= 1 and (trips == 0 or rem == 0):
+        table = rules["straight"]
+        if n in table or n == 0:
+            return table.get(n, "")
+        return table["rest"] * (n - 1) + table.get("last", table["rest"])
+    table = rules[unroll]
+    return table["body"] * trips + table.get(rem, table["rest"] * rem)
+
+
 class ODEObjective(LazyObjective):
     """Abstract ODE objective.  Subclasses set dimensions and implement
     ``F(self, y, u, i)`` (rhs, shape ``(ny,)``) and ``G(self, y, u, i)``
@@ -75,16 +99,34 @@ class ODEObjective(LazyObjective):
 
     ``device=None`` means ``"cuda"`` (raises without CUDA; pass ``"cpu"``);
     ``dtype=None`` means float64.
+
+    ``sweep_unroll`` is the JAX package's ``lax.scan`` unroll of both sweeps,
+    stored as given and clamped to ``1 … nt`` where it is read, as there
+    (:meth:`scan_unroll`).  It changes no value of the generic sweeps here;
+    the bundled models, whose sweeps round as the JAX package's compiled CPU
+    sweeps do, read it at every evaluation (the rounding of an adjoint step
+    depends on its place in the unrolled scan: :attr:`_adjoint_rules`,
+    :func:`scan_rules`) and refuse an unroll they have no rules for with a
+    ``ValueError``.  ``obj.sweep_unroll = u; obj._build()`` changes it, as
+    in the JAX package.  Below nt = 32 the bundled models claim no bits: the
+    JAX trapezoid sum is one fused reduction there, and on the shortest
+    grids XLA fuses the straight-code steps of the scans otherwise; the
+    sweeps agree to rounding.
     """
 
+    # A model's per-step rules of the adjoint scan (scan_rules); None: no
+    # step's rounding depends on its place, so any unroll is reproduced.
+    _adjoint_rules = None
+
     def __init__(self, *, T0, T1, nt, state0, nu=0, V=None, admissible=None,
-                 device=None, dtype=None):
+                 device=None, dtype=None, sweep_unroll=8):
         super().__init__()
         self.device = resolve_device(device)
         self.dtype = resolve_dtype(dtype)
         self.T0 = float(T0)
         self.T1 = float(T1)
         self.nt = int(nt)
+        self.sweep_unroll = int(sweep_unroll)
         self.tau = (self.T1 - self.T0) / self.nt
         self.V = V
         self.admissible = admissible
@@ -103,6 +145,33 @@ class ODEObjective(LazyObjective):
         w = np.ones(self.nt + 1)
         w[0] = w[-1] = 0.5
         self._trap_w = torch.as_tensor(w, dtype=self.dtype, device=self.device)
+        self._build()
+
+    def _build(self):
+        """Check that the sweeps reproduce the JAX package's rounding at
+        ``sweep_unroll``.  The JAX package recompiles its sweeps here; these
+        read the attribute at every evaluation."""
+        self.adjoint_rules()
+
+    def scan_unroll(self) -> int:
+        """``sweep_unroll`` clamped to ``1 … nt``, the unroll the JAX sweeps'
+        scans run with (``mioc_tpu/objectives/ode.py:277``)."""
+        return max(1, min(int(self.sweep_unroll), self.nt))
+
+    def adjoint_rules(self):
+        """The letters of :attr:`_adjoint_rules` for the adjoint scan's
+        ``nt − 1`` steps, in scan order (None without rules); a
+        ``ValueError`` naming ``sweep_unroll`` where the model has none."""
+        if self._adjoint_rules is None:
+            return None
+        try:
+            return scan_rules(self._adjoint_rules, self.nt - 1, self.scan_unroll())
+        except KeyError:
+            unrolls = tuple(k for k in self._adjoint_rules if k != "straight")
+            raise ValueError(
+                f"sweep_unroll={self.sweep_unroll}: {type(self).__name__} reproduces the "
+                f"JAX package's rounding at sweep_unroll in {unrolls}, or where it is "
+                f"at least nt - 1, only") from None
 
     # -- user dynamics (one row) -----------------------------------------------
     def F(self, y, u, i):
@@ -282,25 +351,20 @@ class ODEObjective(LazyObjective):
         return df
 
 
-def _at_step(terms, k):
-    """Step ``k`` of :meth:`RowwiseODEObjective.step_terms` (a tensor or a
-    tuple of tensors with a trailing time axis)."""
-    if isinstance(terms, tuple):
-        return tuple(t[..., k] for t in terms)
-    return terms[..., k]
-
-
 class RowwiseODEObjective(ODEObjective):
     """An ODE objective written on the last axis: ``F``, ``FyT_lam``, ``Fy``,
-    ``Fu``, ``G``, ``Gy`` and ``Gu`` take one row or any batch of rows, so
-    the batched hooks need no vmap and every batched row has the single
-    sweep's bits (``_batched_sweeps_bitexact``).
+    ``Fu``, ``G``, ``Gy`` and ``Gu`` take one row or any batch of rows (the
+    per-row API and the FD checks use them).
 
     A subclass splits its dynamics into the control-only terms
     :meth:`_coupling` (``u (..., M)`` → a tensor or a tuple of tensors of
     ``u``'s leading shape) and :meth:`_rhs` / :meth:`_rhsT_lam`, which take
-    those terms: the sweeps compute the terms for all rows and steps at once
-    with the per-step arithmetic of ``F``."""
+    those terms, and writes its own sweeps (:meth:`_forward_batch`,
+    :meth:`_adjoint_batch`, :meth:`df_rows`) in the rounding of the JAX
+    package's compiled CPU sweeps (:mod:`~mioc_tpu_torch.ops.xla_order`),
+    with :meth:`step_terms` for all rows and steps at once.  Every step is
+    elementwise over the rows, so every batched row has the single sweep's
+    bits (``_batched_sweeps_bitexact``)."""
 
     _batched_sweeps_bitexact = True
 
@@ -321,24 +385,3 @@ class RowwiseODEObjective(ODEObjective):
 
     def step_terms(self, x):
         return self._coupling(x)
-
-    def F_step(self, y, x, k, terms):
-        return self._rhs(y, _at_step(terms, k))
-
-    def FyT_lam_step(self, y, x, lam, k, terms):
-        return self._rhsT_lam(y, lam, _at_step(terms, k))
-
-    def G_rows(self, ys, us, idx):
-        return self.G(ys, us, idx)
-
-    def Gy_rows(self, y, u, i):
-        return self.Gy(y, u, i)
-
-    def df_rows(self, ys0, x, lam):
-        # −F_uᵀλ + G_u, elementwise: the ny-term product per control column
-        # in a fixed order (a matmul's order could change with the batch).
-        Fu = self.Fu(ys0, x, None)  # (S, nt, ny, M)
-        acc = Fu[..., 0, :] * lam[..., 0:1]
-        for j in range(1, self.ny):
-            acc = acc + Fu[..., j, :] * lam[..., j:j + 1]
-        return -acc + self.Gu(ys0, x, None)

@@ -154,9 +154,15 @@ def build_tables_plain(stage, btilde, jump_cost, B: int, smax: int = None):
 build_tables_plain.calls = 0
 
 
-def build_tables(stage, btilde, jump_cost, B: int, smax: int = None):
+def build_tables(stage, btilde, jump_cost, B: int, smax: int = None, unroll: int = 4):
     """DP tables ``(U, phi0)`` (see :func:`build_tables_plain`).  CPU tensors
-    take the plain version; CUDA tensors launch the ``dp_build`` kernel."""
+    take the plain version; CUDA tensors launch the ``dp_build`` kernel.
+
+    ``unroll`` is the JAX package's ``lax.scan`` unroll of the recursion,
+    taken at its position and ignored: its min/argmin recursion has no
+    fused multiply-add to contract, so it gives the same tables at every
+    unroll, and both routes here schedule the same recursion in the same
+    order."""
     if stage.device.type == "cpu":
         return build_tables_plain(stage, btilde, jump_cost, B, smax)
     from .bellman_cuda import dp_build

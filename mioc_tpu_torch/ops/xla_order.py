@@ -21,7 +21,14 @@ package's iterates bit for bit computes its sweeps with these helpers:
   either way.
 * :func:`const_dot`: a dot with a small constant vector written as
   ``c₀u₀ + c₁u₁ + …``, which XLA contracts as ``fma(c₂, u₂, fma(c₀, u₀,
-  c₁u₁))`` and on;
+  c₁u₁))`` and on (a coefficient ±1 is no product there: ``u₀ − u₁·…``
+  contracts the next product instead);
+* :func:`sqrt`: the correctly rounded square root, as XLA's CPU code and
+  CUDA compute it.  PyTorch's CPU ``torch.sqrt`` of float64 is not: it
+  takes MKL's vector math, which misses the nearest double for ~0.7% of
+  inputs (``sqrt(2.0)`` among them).  :func:`sqrt_rounds` checks each device
+  once; where it fails, :func:`sqrt` corrects ``torch.sqrt`` by one ulp with
+  Tuckerman's test in exact fused multiply-adds.
 * :func:`vdot`: XLA's dot of two vectors (``jnp.vdot``), a fused
   multiply-add chain from 0 in index order, read back as a Python float
   (held against the JAX package's for lengths 37 … 5000; shorter dots are
@@ -40,7 +47,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["fma", "fma_exact", "addcmul_fuses", "window_sum", "const_dot", "vdot"]
+__all__ = ["fma", "fma_exact", "addcmul_fuses", "window_sum", "const_dot", "vdot",
+           "sqrt", "sqrt_rounds"]
 
 _SPLIT = 134217729.0  # 2**27 + 1: Veltkamp's splitting constant for float64
 
@@ -142,15 +150,78 @@ def const_dot(u, v):
     """``Σ_m v_m·u[..., m]`` for a constant vector ``v`` (Python floats),
     rounded as XLA's CPU code rounds the JAX package's unrolled
     ``0 + v₀u₀ + v₁u₁ + …``: ``acc = fma(v₀, u₀, v₁u₁)``, then ``acc =
-    fma(v_m, u_m, acc)`` for m ≥ 2 (a single term is one product)."""
+    fma(v_m, u_m, acc)`` for m ≥ 2 (a single term is one product).  A
+    coefficient ±1 multiplies nothing there (``1·u → u``, ``−1·u → −u``), so
+    its term is added as it stands and the product beside it is the one
+    fused: ``−u₀ + 0.75u₁`` is ``fma(0.75, u₁, −u₀)``."""
     v = [float(c) for c in np.asarray(v).ravel()]
+
+    def term(m):  # (factor or None, operand)
+        if abs(v[m]) == 1.0:
+            return None, u[..., m] if v[m] > 0 else -u[..., m]
+        return torch.tensor(v[m], dtype=u.dtype, device=u.device), u[..., m]
+
+    def rounded(t):
+        return t[1] if t[0] is None else t[0] * t[1]
+
     if len(v) == 1:
-        return v[0] * u[..., 0]
-    coef = [torch.tensor(c, dtype=u.dtype, device=u.device) for c in v]
-    acc = fma(u[..., 0], coef[0], v[1] * u[..., 1])
+        return rounded(term(0)) if abs(v[0]) == 1.0 else v[0] * u[..., 0]
+    t0, t1 = term(0), term(1)
+    if t0[0] is not None:
+        acc = fma(t0[1], t0[0], rounded(t1))
+    elif t1[0] is not None:
+        acc = fma(t1[1], t1[0], t0[1])
+    else:
+        acc = t0[1] + t1[1]
     for m in range(2, len(v)):
-        acc = fma(u[..., m], coef[m], acc)
+        c, x = term(m)
+        acc = acc + x if c is None else fma(x, c, acc)
     return acc
+
+
+def _sqrt_tuckerman(x):
+    """``torch.sqrt(x)`` moved to the nearest double: ``s`` is ``RN(√x)``
+    iff ``s·s⁻ < x ≤ s·s⁺`` (Tuckerman's test, ``s⁻``/``s⁺`` the neighbours
+    of ``s``), with the products compared exactly by :func:`fma`."""
+    s = torch.sqrt(x)
+    lo = torch.nextafter(s, torch.zeros_like(s))
+    hi = torch.nextafter(s, torch.full_like(s, torch.inf))
+    below = (fma(s, lo, -x) >= 0) & (s > 0)  # x ≤ s·s⁻: s is one ulp too large
+    above = fma(s, hi, -x) < 0  # x > s·s⁺: s is one ulp too small
+    return torch.where(below, lo, torch.where(above, hi, s))
+
+
+def _sqrt_probe():
+    rng = np.random.default_rng(20261017)
+    x = np.concatenate([[2.0, 3.0, 0.5, 1e-300, 1e300], rng.random(65536) * 4.0,
+                        np.exp(rng.normal(size=8192) * 50)])
+    return x, np.sqrt(x)  # numpy's is the hardware's: correctly rounded
+
+
+_SQRT_RN: dict = {}
+
+
+def sqrt_rounds(device) -> bool:
+    """Whether ``torch.sqrt`` of float64 is correctly rounded on ``device``
+    (checked once per device against numpy's on inputs where MKL's is
+    not)."""
+    dev = torch.device(device)
+    key = (dev.type, dev.index)
+    if key not in _SQRT_RN:
+        x, want = _sqrt_probe()
+        got = torch.sqrt(torch.as_tensor(x, device=dev)).cpu().numpy()
+        _SQRT_RN[key] = bool(np.array_equal(got, want))
+    return _SQRT_RN[key]
+
+
+def sqrt(x):
+    """``RN(√x)`` elementwise: ``torch.sqrt`` where :func:`sqrt_rounds`,
+    else ``torch.sqrt`` corrected by Tuckerman's test (exact on any device
+    for inputs in the normal range; the same bits either way).  float32
+    takes ``torch.sqrt``."""
+    if x.dtype != torch.float64 or sqrt_rounds(x.device):
+        return torch.sqrt(x)
+    return _sqrt_tuckerman(x)
 
 
 def vdot(a, b) -> float:

@@ -650,7 +650,8 @@ HEAT_LARGE_CAPS = [40, 20, 10, 5, 2, 1, 0]  # ⌊δ/Δt⌋ at Δt = 0.05
 
 def heat_solve_section(shape=HEAT_SOLVE, HEAT_CAPS=HEAT_CAPS) -> dict:
     """Device ms of the kernels at a heat solve's shape (``shape``, its
-    halving caps ``HEAT_CAPS``), S=1 and S=8, float64, each equal to its
+    halving caps ``HEAT_CAPS``), S=1 (``dp_build``, ``chase``,
+    ``chase_vec``, ``chase_trials``) and S=8, float64, each equal to its
     plain version first."""
     from .ops import backtrack_cuda as kc
     from .ops import bellman as tb
@@ -666,7 +667,9 @@ def heat_solve_section(shape=HEAT_SOLVE, HEAT_CAPS=HEAT_CAPS) -> dict:
         raise RuntimeError(f"{name}: dp_build differs from the plain build")
     one = (U[None], phi0[None], btilde[None])
     caps1 = torch.tensor([HEAT_CAPS], dtype=torch.int32, device="cuda")
-    if not torch.equal(kc.chase(U, phi0, btilde, B), tb.backtrack_plain(U, phi0, btilde, B)) \
+    walk = tb.backtrack_plain(U, phi0, btilde, B)
+    if not torch.equal(kc.chase(U, phi0, btilde, B), walk) \
+            or not torch.equal(kc.chase_vec(U, phi0, btilde, B), walk) \
             or not torch.equal(kc.chase_trials(*one, caps1),
                                tb.backtrack_trials_plain(*one, caps1.cpu())):
         raise RuntimeError(f"{name}: a chase differs from the plain walk")
@@ -675,6 +678,8 @@ def heat_solve_section(shape=HEAT_SOLVE, HEAT_CAPS=HEAT_CAPS) -> dict:
         "dp_build_ms": device_ms(lambda: bc.dp_build(stage, btilde, jump, B, smax),
                                  "dp_build_kernel"),
         "chase_ms": device_ms(lambda: kc.chase(U, phi0, btilde, B), "chase_kernel"),
+        "chase_vec_ms": device_ms(lambda: kc.chase_vec(U, phi0, btilde, B),
+                                  "chase_vec_kernel"),
         "chase_trials_ms": device_ms(lambda: kc.chase_trials(*one, caps1),
                                      "chunked_chase_kernel")}
 

@@ -896,3 +896,60 @@ def test_two_rank_gloo_world_on_the_card(cuda_device, tmp_path):
         np.testing.assert_array_equal(r["U"], r["Uk"])
         np.testing.assert_array_equal(r["phi"].view(np.int64), r["phik"].view(np.int64))
         np.testing.assert_array_equal(r["idx"], r["idxk"])
+
+
+def test_sqrt_on_the_card_is_correctly_rounded(cuda_device):
+    from mioc_tpu_torch.ops import xla_order
+
+    rng = np.random.default_rng(5)
+    x = np.concatenate([[2.0, 3.0, 0.5], rng.random(100000) * 4.0,
+                        np.exp(rng.normal(size=20000) * 40)])
+    got = xla_order.sqrt(torch.as_tensor(x, device=cuda_device)).cpu().numpy()
+    np.testing.assert_array_equal(got.view(np.int64), np.sqrt(x).view(np.int64))
+
+
+@pytest.mark.parametrize("unroll", [1, 8])
+@pytest.mark.parametrize("cls", ["DTMObj", "VPOObj", "FullerObj", "LVMObj", "LVMMixedObj"])
+def test_ode_sweeps_on_the_card_equal_the_cpu(cuda_device, cls, unroll):
+    """The ODE sweeps round as the JAX package's CPU sweeps on either
+    device: states, f, ∇f and adjoints on the card bit-equal to the CPU's
+    (NaN where the CPU has NaN), at a scan remainder (nt=57)."""
+    from mioc_tpu_torch import models
+    from mioc_tpu_torch.utils.init import rand_func
+
+    def bits(t):
+        a = t.detach().cpu().numpy().astype(np.float64)
+        b = a.view(np.int64).copy()
+        b[np.isnan(a)] = 0x7FF8000000000000
+        return b
+
+    out = {}
+    for dev in ("cpu", cuda_device):
+        obj = getattr(models, cls)(nt=57, device=dev)
+        obj.sweep_unroll = unroll
+        obj._build()
+        X = torch.as_tensor(np.stack([rand_func(obj, seed=s) for s in range(3)]),
+                            dtype=obj.dtype, device=obj.device)
+        f, ys = obj._forward_batch(X)
+        df, lam = obj._adjoint_batch(X, ys)
+        out[str(dev)] = [bits(t) for t in (f, ys, df, lam)]
+    for a, b in zip(out["cpu"], out[str(cuda_device)]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_fuller_terminal_weight_on_the_card_equals_the_cpu(cuda_device):
+    """Fuller's soft terminal condition (G_y's masked weights a tensor on
+    the card): states, f, ∇f and adjoints bit-equal to the CPU's."""
+    from mioc_tpu_torch import models
+    from mioc_tpu_torch.utils.init import rand_func
+
+    out = {}
+    for dev in ("cpu", cuda_device):
+        obj = models.FullerObj(nt=240, terminal_weight=50.0, device=dev)
+        X = torch.as_tensor(np.stack([rand_func(obj, seed=s) for s in range(3)]),
+                            dtype=obj.dtype, device=obj.device)
+        f, ys = obj._forward_batch(X)
+        df, lam = obj._adjoint_batch(X, ys)
+        out[str(dev)] = [t.cpu().numpy() for t in (f, ys, df, lam)]
+    for a, b in zip(out["cpu"], out[str(cuda_device)]):
+        np.testing.assert_array_equal(a.view(np.int64), b.view(np.int64))

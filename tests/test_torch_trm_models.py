@@ -4,8 +4,9 @@ and convolution problems, and the device TRM on convolution.
 Host solves run on the CPU from the same seed with the presets of
 tests/test_trm.py.  Integer outputs (iterations, inner steps, evaluation
 counts, DP builds, accepted and final controls) must be equal; J, f and tv
-agree to rtol 1e-12 at float64 (the last bits of f differ, see
-test_torch_models.py).  The device TRM on the convolution problem (an
+are equal for the double tank, Van der Pol and Fuller, whose sweeps round as
+the JAX package's (test_torch_ode_bits.py), and agree to rtol 1e-12 at
+float64 for convolution, whose dense products round otherwise.  The device TRM on the convolution problem (an
 objective without a state) gives the same trajectory with the speculative
 trial wave as with the sequential inner loop, field for field.
 """
@@ -53,8 +54,11 @@ def test_host_solve_matches_jax(name):
     np.testing.assert_array_equal(rt.u, np.asarray(rj.u))
     np.testing.assert_array_equal(rt.x_final, np.asarray(rj.x_final))
     for field in FLOATS:
-        np.testing.assert_allclose(getattr(rt, field), getattr(rj, field), rtol=1e-12,
-                                   err_msg=field)
+        if name == "convolution":
+            np.testing.assert_allclose(getattr(rt, field), getattr(rj, field), rtol=1e-12,
+                                       err_msg=field)
+        else:
+            assert getattr(rt, field) == float(getattr(rj, field)), field
     assert (tb.build_tables_plain.calls - calls[0], tb.backtrack_plain.calls - calls[1]) == (
         rt.dp_builds, rt.inner_steps)
 
