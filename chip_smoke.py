@@ -787,22 +787,28 @@ def zero_counts(torch):
     return read
 
 
-def count_sweeps(obj) -> dict:
-    """Count the objective's batched sweeps by batch size, ``{"f": {rows:
-    batches}, "df": {rows: batches}}`` (instrumentation only: the wrapped
-    methods run unchanged)."""
+def record_sweeps() -> None:
+    """Start recording the program's spans (``mioc_tpu_torch/utils/trace.py``)
+    with none recorded before; :func:`recorded_sweeps` reads them."""
+    from mioc_tpu_torch.utils import trace
+
+    trace.take()
+    trace.enable()
+
+
+def recorded_sweeps() -> dict:
+    """Stop recording; the objective's batched sweeps since
+    :func:`record_sweeps` by rows passed, ``{"f": {rows: sweeps}, "df":
+    {rows: sweeps}}``, from the program's ``<layer>.f``/``<layer>.df`` spans."""
+    from mioc_tpu_torch.utils import trace
+
+    trace.disable()
     counts = {"f": {}, "df": {}}
-    fwd, adj = obj._forward_batch, obj._adjoint_batch
-
-    def forward(xs):
-        counts["f"][xs.shape[0]] = counts["f"].get(xs.shape[0], 0) + 1
-        return fwd(xs)
-
-    def adjoint(xs, ys):
-        counts["df"][xs.shape[0]] = counts["df"].get(xs.shape[0], 0) + 1
-        return adj(xs, ys)
-
-    obj._forward_batch, obj._adjoint_batch = forward, adjoint
+    for sp in trace.take():
+        layer, _, tag = sp.name.rpartition(".")
+        if layer.endswith("_sweep"):
+            rows = sp.attrs["rows"]
+            counts[tag][rows] = counts[tag].get(rows, 0) + 1
     return counts
 
 
@@ -858,12 +864,13 @@ def device_single_path(torch, host):
     from mioc_tpu_torch.solvers.trm_device import trm_solve_device
 
     obj = LVMObj(nt=1024)
-    sweeps = count_sweeps(obj)
+    record_sweeps()
     read = zero_counts(torch)
     t0 = time.perf_counter()
     res = trm_solve_device(obj, TRMParameters(**PRESET), seed=0)
     wall = time.perf_counter() - t0
     launches, plain_calls = read()
+    sweeps = recorded_sweeps()
     emit({"phase": "device_single", "problem": "fishing", "nt": 1024,
           "dtype": "float64", "speculative": True, "wave_chase": "vmap",
           "J": float(res.J), "converged": bool(res.converged),
@@ -890,13 +897,14 @@ def multistart_path(torch, x0s, speculative: bool):
     from mioc_tpu_torch.solvers.trm_device import multistart_solve_device
 
     obj = LVMObj(nt=1024)
-    sweeps = count_sweeps(obj)
+    record_sweeps()
     read = zero_counts(torch)
     t0 = time.perf_counter()
     res = multistart_solve_device(obj, TRMParameters(**PRESET), x0s,
                                   speculative=speculative)
     wall = time.perf_counter() - t0
     launches, plain_calls = read()
+    sweeps = recorded_sweeps()
     name = "multistart_speculative" if speculative else "multistart_sequential"
     emit({"phase": name, "problem": "fishing", "nt": 1024, "dtype": "float64",
           "S": len(x0s), "J": res.J.tolist(), "converged": res.converged.tolist(),
@@ -1500,12 +1508,13 @@ def heat_device_path(torch, host) -> tuple:
 
     obj = HeatObj(nt=HEAT_NT)
     require(obj.Nglobal_dofs == HEAT_N and obj.admissible.L == 36, "heat: N = 545, L = 36")
-    sweeps = count_sweeps(obj)
+    record_sweeps()
     read = zero_counts(torch)
     t0 = time.perf_counter()
     res = trm_solve_device(obj, TRMParameters(**HEAT_PRESET), seed=0)
     wall = time.perf_counter() - t0
     launches, plain_calls = read()
+    sweeps = recorded_sweeps()
     emit({"phase": "heat_device", "problem": "heat", "nt": HEAT_NT, "N": HEAT_N,
           "dtype": "float64", "speculative": True, "wave_chase": obj._wave_chase_default,
           "J": float(res.J), "converged": bool(res.converged),
@@ -1543,13 +1552,14 @@ def heat_multistart_path(torch, x0s, speculative: bool) -> tuple:
     S, B = len(x0s), int(np.floor(HEAT_PRESET["delta0"] / obj.tau))
     plan = cluster_build_plan(S, HEAT_NT, obj.admissible.L, B, 8,
                               max_budget_use(obj.admissible.levels))
-    sweeps = count_sweeps(obj)
+    record_sweeps()
     read = zero_counts(torch)
     t0 = time.perf_counter()
     res = multistart_solve_device(obj, TRMParameters(**HEAT_PRESET), x0s,
                                   speculative=speculative)
     wall = time.perf_counter() - t0
     launches, plain_calls = read()
+    sweeps = recorded_sweeps()
     name = "heat_multistart_" + ("speculative" if speculative else "sequential")
     emit({"phase": name, "problem": "heat", "nt": HEAT_NT, "N": HEAT_N,
           "dtype": "float64", "S": S, "B": B, "build_plan": plan._asdict(),
@@ -1770,8 +1780,8 @@ def large_solves(torch, obj) -> dict:
 
     par = TRMParameters(**HEAT_PRESET, maxiter=LARGE_MAXITER)
     its, inner, f_evals, df_evals, J = LARGE_REF
-    sweeps = count_sweeps(obj)
     out = {}
+    record_sweeps()
     read = zero_counts(torch)
     t0 = time.perf_counter()
     host = trm_solve(obj, par, seed=0)
@@ -1781,7 +1791,7 @@ def large_solves(torch, obj) -> dict:
     out["host"] = {"J": host.J, "iterations": host.iterations,
                    "inner_steps": host.inner_steps, "f_evals": host.f_evals,
                    "df_evals": host.df_evals, "launches": launches, "plain_calls_on_card": plain,
-                   "sweeps": {k: dict(v) for k, v in sweeps.items()}, "wall_s": wall,
+                   "sweeps": recorded_sweeps(), "wall_s": wall,
                    "timings_s": host.timings}
     require((host.iterations, host.inner_steps, host.f_evals, host.df_evals) ==
             (its, inner, f_evals, df_evals),
@@ -1794,8 +1804,7 @@ def large_solves(torch, obj) -> dict:
     require(not any(plain.values()), f"heat_large host: no plain DP on the card: {plain}")
     dev = {}
     for spec in (True, False):
-        for v in sweeps.values():
-            v.clear()
+        record_sweeps()
         read = zero_counts(torch)
         t0 = time.perf_counter()
         # The speculative loop in segments of one outer iteration (the JAX
@@ -1813,7 +1822,7 @@ def large_solves(torch, obj) -> dict:
                      "inner_steps": int(res.inner_steps), "f_evals": int(res.f_evals),
                      "df_evals": int(res.df_evals), "launches": launches,
                      "plain_calls_on_card": plain,
-                     "sweeps": {k: dict(v) for k, v in sweeps.items()}, "wall_s": wall}
+                     "sweeps": recorded_sweeps(), "wall_s": wall}
         wave = "chase_trials" if spec else "chase"
         require(int(res.iterations) == its and int(res.inner_steps) == inner,
                 f"heat_large {name}: iterations/inner {int(res.iterations)}/"
@@ -1829,7 +1838,6 @@ def large_solves(torch, obj) -> dict:
     for field in DeviceTRMResult._fields:
         require(np.array_equal(getattr(dev[True], field), getattr(dev[False], field)),
                 f"heat_large: speculative == sequential: {field}")
-    del obj._forward_batch, obj._adjoint_batch  # count_sweeps' wrappers
     return out
 
 
@@ -1857,21 +1865,21 @@ def large_multistart(torch, obj, rows) -> dict:
     out, res = {}, {}
     for spec in (False, True):
         name = "multistart_speculative" if spec else "multistart_sequential"
-        sweeps = count_sweeps(obj)
+        record_sweeps()
         read = zero_counts(torch)
         t0 = time.perf_counter()
         r = multistart_solve_device(obj, par, x0s, speculative=spec)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches, plain = read()
-        del obj._forward_batch, obj._adjoint_batch  # count_sweeps' wrappers
+        sweeps = recorded_sweeps()
         res[spec] = r
         wave_rows = max(sweeps["f"])
         out[name] = {"S": LARGE_STARTS, "maxiter": LARGE_MAXITER, "J": r.J.tolist(),
                      "iterations": r.iterations.tolist(), "inner_steps": r.inner_steps.tolist(),
                      "f_evals": r.f_evals.tolist(), "df_evals": r.df_evals.tolist(),
                      "launches": launches, "plain_calls_on_card": plain,
-                     "sweeps": {k: dict(v) for k, v in sweeps.items()}, "wall_s": wall,
+                     "sweeps": sweeps, "wall_s": wall,
                      "ms_per_start": 1e3 * wall / LARGE_STARTS,
                      "ms_per_sweep_from_rows": ms_per_sweep, "rows_per_chunk": ROWS,
                      "largest_forward_rows": wave_rows,

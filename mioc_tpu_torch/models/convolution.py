@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_device, resolve_dtype
-from ..objectives.base import LazyObjective
+from ..objectives.base import LazyObjective, sweep_span
 from ..ops.levels import product_levels
 from ..ops.rows import ROWS, chunked
 from ..ops.tv import fold_sum
@@ -84,6 +84,7 @@ class ConvObj(LazyObjective):
     # Every row of a batch has the bits of the single evaluation (fixed-shape
     # chunks, fold sums), so the speculative wave is exact and on by default.
     _batched_sweeps_bitexact = True
+    _sweep_layer = "conv_sweep"
 
     def __init__(self, nt: int = 2048, *, omega0=np.pi, device=None, dtype=None,
                  matmul_precision: str = "float32"):
@@ -143,13 +144,21 @@ class ConvObj(LazyObjective):
 
     # Batched evaluation: the hooks of the device TRM (solvers/trm_device.py).
     # There is no state, so the auxiliary output is None.
+    @sweep_span("f")
     def _forward_batch(self, xs):
         """``xs (S, nt, 1) → (f (S,), None)``."""
         return chunked(self._f_chunk, xs[..., 0]), None
 
+    @sweep_span("df")
     def _adjoint_batch(self, xs, aux):
         """``(xs (S, nt, 1), None) → (df (S, nt, 1), None)``."""
         return chunked(self._df_chunk, xs[..., 0])[..., None], None
+
+    def _rows_swept(self, rows: int) -> int:
+        return rows + (-rows % ROWS)
+
+    def _sweep_steps(self, rows: int) -> int:
+        return -(-rows // ROWS)  # one product per chunk of ROWS rows, no recursion
 
     def _forward(self, x):
         f, _ = self._forward_batch(x[None])

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_dtype
+from ..objectives.base import sweep_span
 from ..objectives.ode import RowwiseODEObjective, _numpy_dtype
 from ..ops.levels import bounded_sum_levels
 from ..ops.xla_order import const_dot, fma, sqrt, window_sum
@@ -117,6 +118,7 @@ class DTMObj(RowwiseODEObjective):
         return torch.zeros_like(u)
 
     # -- sweeps in the JAX package's CPU rounding (module docstring) -----------
+    @sweep_span("f")
     def _forward_batch(self, xs):
         tau, nt = self.tau, self.nt
         S = xs.shape[0]
@@ -132,6 +134,7 @@ class DTMObj(RowwiseODEObjective):
         d = torch.cat([y0[None], ys])[..., 1].transpose(0, 1) - self.k2  # (S, nt+1)
         return tau * window_sum((d * d) * (self.k1 * self._trap_w)), ys
 
+    @sweep_span("df")
     def _adjoint_batch(self, xs, ys):
         nt = self.nt
         S = xs.shape[0]

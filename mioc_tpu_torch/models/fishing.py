@@ -41,6 +41,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_dtype
+from ..objectives.base import sweep_span
 from ..objectives.ode import RowwiseODEObjective, _numpy_dtype
 from ..ops.levels import bounded_sum_levels
 from ..ops.xla_order import const_dot, fma, window_sum
@@ -147,6 +148,7 @@ class LVMObj(RowwiseODEObjective):
         K1 = torch.tensor([-self.beta, self.delta], dtype=xs.dtype, device=xs.device)
         return A, K0, K1
 
+    @sweep_span("f")
     def _forward_batch(self, xs):
         tau, nt = self.tau, self.nt
         S = xs.shape[0]
@@ -162,6 +164,7 @@ class LVMObj(RowwiseODEObjective):
         d0, d1 = yall[..., 0] - 1.0, yall[..., 1] - 1.0
         return tau * window_sum(self._trap_w * (0.5 * fma(d0, d0, d1 * d1))), ys
 
+    @sweep_span("df")
     def _adjoint_batch(self, xs, ys):
         tau, nt = self.tau, self.nt
         S = xs.shape[0]

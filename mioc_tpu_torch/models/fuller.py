@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_dtype
+from ..objectives.base import sweep_span
 from ..objectives.ode import RowwiseODEObjective, _numpy_dtype
 from ..ops.levels import product_levels
 from ..ops.xla_order import fma, window_sum
@@ -125,6 +126,7 @@ class FullerObj(RowwiseODEObjective):
         return torch.zeros_like(u)
 
     # -- sweeps in the JAX package's CPU rounding (module docstring) -----------
+    @sweep_span("f")
     def _forward_batch(self, xs):
         tau, nt = self.tau, self.nt
         S = xs.shape[0]
@@ -140,6 +142,7 @@ class FullerObj(RowwiseODEObjective):
         g = self.G(yall, None, self._g_idx)
         return tau * window_sum(self._trap_w * g), ys
 
+    @sweep_span("df")
     def _adjoint_batch(self, xs, ys):
         nt = self.nt
         S = xs.shape[0]

@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_dtype
+from ..objectives.base import sweep_span
 from ..objectives.ode import RowwiseODEObjective, _numpy_dtype, const_dot
 from ..ops.levels import bounded_sum_levels
 from ..ops.xla_order import fma, window_sum
@@ -161,6 +162,7 @@ class LVMMixedObj(RowwiseODEObjective):
     def _S(y, A1, A2, K0, K1):
         return fma(K1, y.flip(-1), K0) - A1 - A2
 
+    @sweep_span("f")
     def _forward_batch(self, xs):
         tau, nt = self.tau, self.nt
         S = xs.shape[0]
@@ -179,6 +181,7 @@ class LVMMixedObj(RowwiseODEObjective):
                 0.5 * fma(d0, d0, d1 * d1))
         return tau * window_sum(self._trap_w * g), ys
 
+    @sweep_span("df")
     def _adjoint_batch(self, xs, ys):
         tau, nt = self.tau, self.nt
         S = xs.shape[0]

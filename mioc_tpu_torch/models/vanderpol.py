@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from .._device import resolve_dtype
+from ..objectives.base import sweep_span
 from ..objectives.ode import RowwiseODEObjective, _numpy_dtype
 from ..ops.levels import bounded_sum_levels
 from ..ops.xla_order import const_dot, fma, window_sum
@@ -109,6 +110,7 @@ class VPOObj(RowwiseODEObjective):
         return torch.zeros_like(u)
 
     # -- sweeps in the JAX package's CPU rounding (module docstring) -----------
+    @sweep_span("f")
     def _forward_batch(self, xs):
         tau, nt = self.tau, self.nt
         S = xs.shape[0]
@@ -128,6 +130,7 @@ class VPOObj(RowwiseODEObjective):
         a, b = yall[..., 0], yall[..., 1]
         return tau * window_sum(self._trap_w * fma(a, a, b * b)), ys
 
+    @sweep_span("df")
     def _adjoint_batch(self, xs, ys):
         nt = self.nt
         S = xs.shape[0]

@@ -21,14 +21,34 @@ tensor on the objective's ``device``.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import numpy as np
 import torch
 
+from ..utils import trace
 from ..utils.checks import check_nan
 
-__all__ = ["Objective", "LazyObjective", "AAOObjective"]
+__all__ = ["Objective", "LazyObjective", "AAOObjective", "sweep_span"]
+
+
+def sweep_span(tag: str):
+    """Decorate a batched sweep ``(self, xs (rows, nt, nx), ...)`` with the
+    span ``<self._sweep_layer>.<tag>`` (:mod:`~mioc_tpu_torch.utils.trace`):
+    ``rows`` passed, ``rows_swept`` computed (:meth:`Objective._rows_swept`,
+    padding included) and ``steps`` (:meth:`Objective._sweep_steps`)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def traced(self, xs, *args):
+            if not trace.enabled():
+                return fn(self, xs, *args)
+            rows = xs.shape[0]
+            with trace.span(f"{self._sweep_layer}.{tag}", rows=rows,
+                            rows_swept=self._rows_swept(rows), steps=self._sweep_steps(rows)):
+                return fn(self, xs, *args)
+        return traced
+    return wrap
 
 
 class Objective:
@@ -55,6 +75,8 @@ class Objective:
     # code, fixed-order sums).  The device TRM's speculative-wave default
     # reads it (solvers/trm_device.py); mioc_tpu.objectives.base:99.
     _batched_sweeps_bitexact = False
+    # The layer that names the spans of the batched sweeps (sweep_span).
+    _sweep_layer = "sweep"
 
     def __init__(self):
         self.f: float = 0.0
@@ -85,6 +107,14 @@ class Objective:
     def as_control(self, x) -> torch.Tensor:
         """``x`` as a tensor of this objective's dtype on its device."""
         return torch.as_tensor(x, dtype=self.dtype, device=self.device)
+
+    def _rows_swept(self, rows: int) -> int:
+        """Rows a batched sweep of ``rows`` rows computes, padding included."""
+        return rows
+
+    def _sweep_steps(self, rows: int) -> int:
+        """Sequential steps of a batched sweep of ``rows`` rows."""
+        return self.nt
 
 
 class LazyObjective(Objective):

@@ -46,7 +46,7 @@ from torch.func import grad, jacfwd, vjp, vmap
 
 from .._device import resolve_device, resolve_dtype
 from ..ops.tv import fold_sum
-from .base import LazyObjective
+from .base import LazyObjective, sweep_span
 
 __all__ = ["ODEObjective", "RowwiseODEObjective", "const_dot"]
 
@@ -117,6 +117,7 @@ class ODEObjective(LazyObjective):
     # A model's per-step rules of the adjoint scan (scan_rules); None: no
     # step's rounding depends on its place, so any unroll is reproduced.
     _adjoint_rules = None
+    _sweep_layer = "ode_sweep"
 
     def __init__(self, *, T0, T1, nt, state0, nu=0, V=None, admissible=None,
                  device=None, dtype=None, sweep_unroll=8):
@@ -286,6 +287,7 @@ class ODEObjective(LazyObjective):
         return vmap(vmap(dfk), in_dims=(0, 0, 0, None))(ys0, x, lam, idx)
 
     # -- sweeps ----------------------------------------------------------------
+    @sweep_span("f")
     def _forward_batch(self, xs):
         """``xs (S, nt, nx) → (f (S,), ys (nt, S, ny))`` with ``ys[k, s] =
         y_{k+1}`` of row ``s``: TIME-major with the batch on axis 1, the JAX
@@ -304,6 +306,7 @@ class ODEObjective(LazyObjective):
         gvals = self.G_rows(ys_all, xs[:, self._g_idx], self._g_idx)
         return tau * fold_sum(self._trap_w * gvals), ys
 
+    @sweep_span("df")
     def _adjoint_batch(self, xs, ys):
         """``(xs (S, nt, nx), ys (nt, S, ny)) → (df (S, nt, nx), lam (S, nt,
         ny))``."""

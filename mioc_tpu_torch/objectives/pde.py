@@ -66,7 +66,7 @@ from ..fem import banded_device
 from ..fem.sparse_device import cg_solve_rows
 from ..ops.rows import ROWS, chunked
 from ..ops.tv import fold_sum
-from .base import LazyObjective
+from .base import LazyObjective, sweep_span
 
 __all__ = ["PDEObjective", "COST_ROWS"]
 
@@ -155,6 +155,7 @@ class PDEObjective(LazyObjective):
     dof_perm = None
     _dof_iperm = None
     _engine = None
+    _sweep_layer = "pde_sweep"
 
     def __init__(self, *, T0, T1, nt, nu=0, V=None, admissible=None,
                  device=None, dtype=None):
@@ -470,6 +471,7 @@ class PDEObjective(LazyObjective):
                 lam_tm[j, s0:s0 + n] = E.unpad(lam)[:n]
         return lam_tm
 
+    @sweep_span("f")
     def _forward_batch(self, xs):
         """``xs (R, nt, nx) → (f (R,), ys (nt+1, R, N))``, ``ys[k] = y_k``:
         time-major with the rows on axis 1, the JAX package's layout."""
@@ -487,6 +489,7 @@ class PDEObjective(LazyObjective):
         g = g.view(nt + 1, R).T
         return self.tau * fold_sum(self._trap_w * g), ys
 
+    @sweep_span("df")
     def _adjoint_batch(self, xs, ys):
         """``(xs (R, nt, nx), ys (nt+1, R, N)) → (df (R, nt, nx), lam (R, nt,
         N))``, ``lam[:, j] = λ_j``."""
@@ -514,6 +517,14 @@ class PDEObjective(LazyObjective):
     def _forward_batch_with(self, xs):
         """The JAX package's name for :meth:`_forward_batch`."""
         return self._forward_batch(xs)
+
+    def _rows_swept(self, rows: int) -> int:
+        return rows + (-rows % ROWS)  # every product runs on chunks of ROWS rows
+
+    def _sweep_steps(self, rows: int) -> int:
+        # The sparse engines step each chunk of ROWS rows through the steps
+        # in turn; the dense sweep steps all chunks together.
+        return self.nt * (1 if self._engine is None else -(-rows // ROWS))
 
     def _forward(self, x):
         """``x (nt, nx) → (f, ys (nt+1, N))``."""

@@ -51,6 +51,8 @@ import os
 import numpy as np
 import torch
 
+from ..utils import trace
+
 __all__ = [
     "stage_tables",
     "max_budget_use",
@@ -163,11 +165,12 @@ def build_tables(stage, btilde, jump_cost, B: int, smax: int = None, unroll: int
     fused multiply-add to contract, so it gives the same tables at every
     unroll, and both routes here schedule the same recursion in the same
     order."""
-    if stage.device.type == "cpu":
-        return build_tables_plain(stage, btilde, jump_cost, B, smax)
-    from .bellman_cuda import dp_build
+    with trace.span("dp.build"):
+        if stage.device.type == "cpu":
+            return build_tables_plain(stage, btilde, jump_cost, B, smax)
+        from .bellman_cuda import dp_build
 
-    return dp_build(stage, btilde, jump_cost, B, B if smax is None else smax)
+        return dp_build(stage, btilde, jump_cost, B, B if smax is None else smax)
 
 
 def build_tables_batched_plain(stage, btilde, jump_cost, B: int, smax: int = None):
@@ -186,11 +189,12 @@ def build_tables_batched(stage, btilde, jump_cost, B: int, smax: int = None):
     """Batched DP tables (see :func:`build_tables_batched_plain`).  CPU
     tensors take the plain version; CUDA tensors launch the
     ``dp_build_batched`` kernel."""
-    if stage.device.type == "cpu":
-        return build_tables_batched_plain(stage, btilde, jump_cost, B, smax)
-    from .bellman_cuda import dp_build_batched
+    with trace.span("dp.build"):
+        if stage.device.type == "cpu":
+            return build_tables_batched_plain(stage, btilde, jump_cost, B, smax)
+        from .bellman_cuda import dp_build_batched
 
-    return dp_build_batched(stage, btilde, jump_cost, B, B if smax is None else smax)
+        return dp_build_batched(stage, btilde, jump_cost, B, B if smax is None else smax)
 
 
 def budget_index(b, B: int):
@@ -274,12 +278,13 @@ def backtrack(U, phi0, btilde, levels, B_new):
     value).  The batched and trial-wave chases do not read it.
     """
     name = chase_kernel_name()
-    if phi0.device.type == "cpu":
-        level_idx = backtrack_plain(U, phi0, btilde, B_new)
-    else:
-        from . import backtrack_cuda
+    with trace.span("dp.chase"):
+        if phi0.device.type == "cpu":
+            level_idx = backtrack_plain(U, phi0, btilde, B_new)
+        else:
+            from . import backtrack_cuda
 
-        level_idx = getattr(backtrack_cuda, name)(U, phi0, btilde, B_new)
+            level_idx = getattr(backtrack_cuda, name)(U, phi0, btilde, B_new)
     return _levels_at(levels, phi0, level_idx), level_idx
 
 
@@ -322,12 +327,13 @@ def backtrack_batched(U, phi0, btilde, levels, B_new):
     returns ``(u (S, nt, M), level_idx (S, nt))``.  CPU tensors take the
     plain version; CUDA tensors launch the ``chase_batched`` kernel, which
     also takes tables expanded along the start axis (batch stride 0)."""
-    if phi0.device.type == "cpu":
-        level_idx = backtrack_batched_plain(U, phi0, btilde, B_new)
-    else:
-        from .backtrack_cuda import chase_batched
+    with trace.span("dp.chase"):
+        if phi0.device.type == "cpu":
+            level_idx = backtrack_batched_plain(U, phi0, btilde, B_new)
+        else:
+            from .backtrack_cuda import chase_batched
 
-        level_idx = chase_batched(U, phi0, btilde, B_new)
+            level_idx = chase_batched(U, phi0, btilde, B_new)
     return _levels_at(levels, phi0, level_idx), level_idx
 
 
@@ -336,12 +342,13 @@ def backtrack_trials(U, phi0, btilde, levels, B_trials):
     tables; returns ``(u (S, Kt, nt, M), level_idx (S, Kt, nt))``.  CPU
     tensors take the plain version; CUDA tensors launch the
     ``chase_trials`` kernel."""
-    if phi0.device.type == "cpu":
-        level_idx = backtrack_trials_plain(U, phi0, btilde, B_trials)
-    else:
-        from .backtrack_cuda import chase_trials
+    with trace.span("dp.chase"):
+        if phi0.device.type == "cpu":
+            level_idx = backtrack_trials_plain(U, phi0, btilde, B_trials)
+        else:
+            from .backtrack_cuda import chase_trials
 
-        level_idx = chase_trials(U, phi0, btilde, B_trials)
+            level_idx = chase_trials(U, phi0, btilde, B_trials)
     return _levels_at(levels, phi0, level_idx), level_idx
 
 

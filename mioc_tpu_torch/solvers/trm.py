@@ -51,6 +51,7 @@ import torch
 from ..ops.bellman import backtrack, build_tables, max_budget_use, stage_tables
 from ..ops.levels import jump_cost_table
 from ..ops.tv import tv_p
+from ..utils import trace
 from ..utils.checks import check_nan
 from ..utils.init import rand_func
 from ..utils.logging import IterationLog
@@ -149,7 +150,15 @@ def _profiler(device: torch.device):
 def trm_solve(obj, par: TRMParameters = None, x0=None, seed: Optional[int] = None) -> TRMResult:
     """Run the TRM on ``obj`` (a LazyObjective with an admissible set) on
     ``obj.device``."""
-    par = par or TRMParameters()
+    f0, df0 = obj.f_evals, obj.df_evals
+    with trace.span("solve") as sp:
+        res = _trm_solve(obj, par or TRMParameters(), x0, seed)
+        # This solve's evaluations: the result's counters are the objective's.
+        sp.set(f_evals=res.f_evals - f0, df_evals=res.df_evals - df0)
+    return res
+
+
+def _trm_solve(obj, par: TRMParameters, x0, seed) -> TRMResult:
     route = dp_route(par.dp_backend, par.use_pallas, obj.device)
     nt, dt = obj.nt, obj.tau
     adm = obj.admissible
@@ -222,10 +231,20 @@ def trm_solve(obj, par: TRMParameters = None, x0=None, seed: Optional[int] = Non
     log = IterationLog(enabled=par.log, metrics_path=par.metrics_path)
 
     def timed(key, fn, *args):
+        """``fn(*args)`` timed into ``timers[key]``; on the card it ends in a
+        synchronise, so the timer holds the phase's device time, not its
+        enqueue."""
         t0 = time.perf_counter()
         out = fn(*args)
+        if cuda:
+            torch.cuda.synchronize(dev)
         timers[key] += time.perf_counter() - t0
         return out
+
+    def build(grad, u_old):
+        with trace.span("trm.stage"):
+            stage, btilde = stage_tables(grad, u_old, levels, dt)
+        return dp_build(stage, btilde), btilde
 
     J = math.inf
     J_old = timed("f", obj.eval_f_)
@@ -245,104 +264,100 @@ def trm_solve(obj, par: TRMParameters = None, x0=None, seed: Optional[int] = Non
 
     try:
         while not stop and iteration <= par.maxiter:
-            delta_k = par.delta0
-            k = 1
-            ared, pred = 0.0, 1.0
-            halved = False
-            TV_old = float(tv_p(u_old, par.p))
+            with trace.span("trm.outer"):
+                delta_k = par.delta0
+                k = 1
+                ared, pred = 0.0, 1.0
+                halved = False
+                TV_old = float(tv_p(u_old, par.p))
 
-            timed("df", obj.eval_df_)
-            grad = obj.df
+                timed("df", obj.eval_df_)
+                grad = obj.df
 
-            btilde = tables = None
+                btilde = tables = None
 
-            while ared < par.sigma * pred and k <= par.kmax:
-                if halved:
-                    B_new = int(math.floor(delta_k / dt))
-                    u, _ = timed("backtrack", dp_backtrack, tables, btilde, B_new)
-                else:
-                    t0 = time.perf_counter()
-                    stage, btilde = stage_tables(grad, u_old, levels, dt)
-                    tables = dp_build(stage, btilde)
-                    if cuda:
-                        torch.cuda.synchronize(dev)
-                    timers["dp"] += time.perf_counter() - t0
-                    dp_builds += 1
-                    u, _ = timed("backtrack", dp_backtrack, tables, btilde, B)
+                while ared < par.sigma * pred and k <= par.kmax:
+                    if halved:
+                        B_new = int(math.floor(delta_k / dt))
+                        u, _ = timed("backtrack", dp_backtrack, tables, btilde, B_new)
+                    else:
+                        tables, btilde = timed("dp", build, grad, u_old)
+                        dp_builds += 1
+                        u, _ = timed("backtrack", dp_backtrack, tables, btilde, B)
 
-                if par.debug_checks:
-                    from ..utils.checks import assert_admissible, check_budget
+                    if par.debug_checks:
+                        from ..utils.checks import assert_admissible, check_budget
 
-                    assert_admissible(u, adm)
-                    check_budget(u, u_old, B if not halved else B_new)
+                        assert_admissible(u, adm)
+                        check_budget(u, u_old, B if not halved else B_new)
 
-                # pred / ared (multi-trust.jl:117-127)
-                int_val = dt * float(torch.sum(grad * (u_old - u)))
-                TV_new = float(tv_p(u, par.p))
-                obj.x = u
-                J_new = timed("f", obj.eval_f_)
+                    # pred / ared (multi-trust.jl:117-127)
+                    int_val = dt * float(torch.sum(grad * (u_old - u)))
+                    TV_new = float(tv_p(u, par.p))
+                    obj.x = u
+                    J_new = timed("f", obj.eval_f_)
 
-                pred = int_val + par.beta * (TV_old - TV_new)
-                ared = J_old - J_new + par.beta * (TV_old - TV_new)
-                if not math.isfinite(J_new):
-                    ared = -math.inf  # reject blown-up trials (unstable ODEs)
+                    pred = int_val + par.beta * (TV_old - TV_new)
+                    ared = J_old - J_new + par.beta * (TV_old - TV_new)
+                    if not math.isfinite(J_new):
+                        ared = -math.inf  # reject blown-up trials (unstable ODEs)
 
-                inner_total += 1
+                    inner_total += 1
 
-                if pred <= 0:
-                    # DP certifies stationarity of the linearized model.
-                    J = J_old
-                    stop = True
-                    log.row(iteration, k, delta_k, J + par.beta * TV_old, pred, ared,
-                            "optimal solution found")
-                    break
-                elif ared < par.sigma * pred:
-                    log.row(iteration, k, delta_k, J_old + par.beta * TV_old, pred, ared,
-                            "bad step, halved")
-                    delta_k /= 2.0
-                    halved = True
-                else:
-                    u_old = u
-                    J_old = J_new
-                    TV_old = TV_new
-                    J = J_new
-                    log.row(iteration, k, delta_k, J + par.beta * TV_new, pred, ared,
-                            "good step")
-                k += 1
+                    if pred <= 0:
+                        # DP certifies stationarity of the linearized model.
+                        J = J_old
+                        stop = True
+                        log.row(iteration, k, delta_k, J + par.beta * TV_old, pred, ared,
+                                "optimal solution found")
+                        break
+                    elif ared < par.sigma * pred:
+                        log.row(iteration, k, delta_k, J_old + par.beta * TV_old, pred, ared,
+                                "bad step, halved")
+                        delta_k /= 2.0
+                        halved = True
+                    else:
+                        u_old = u
+                        J_old = J_new
+                        TV_old = TV_new
+                        J = J_new
+                        log.row(iteration, k, delta_k, J + par.beta * TV_new, pred, ared,
+                                "good step")
+                    k += 1
 
-            if not stop and bool(torch.any(u != u_old)):
-                # kmax exhausted with a rejected candidate: restore the accepted
-                # iterate before the next gradient (divergence from the reference,
-                # which differentiates at the rejected candidate; see module doc).
-                obj.x = u_old
-                J_old = timed("f", obj.eval_f_)
+                if not stop and bool(torch.any(u != u_old)):
+                    # kmax exhausted with a rejected candidate: restore the accepted
+                    # iterate before the next gradient (divergence from the reference,
+                    # which differentiates at the rejected candidate; see module doc).
+                    obj.x = u_old
+                    J_old = timed("f", obj.eval_f_)
 
-            log.metrics(
-                iteration=iteration,
-                J=J_old + par.beta * TV_old,
-                f=J_old,
-                tv=TV_old,
-                pred=pred,
-                ared=ared,
-                inner=k - 1,
-                f_evals=obj.f_evals,
-                df_evals=obj.df_evals,
-                dp_s=timers["dp"],
-                f_s=timers["f"],
-                df_s=timers["df"],
-            )
-            if par.checkpoint_path:
-                from ..utils.io import save_checkpoint
-
-                save_checkpoint(
-                    par.checkpoint_path,
-                    u=u_old.cpu().numpy(),
-                    delta=delta_k,
+                log.metrics(
                     iteration=iteration,
-                    J=J_old,
+                    J=J_old + par.beta * TV_old,
+                    f=J_old,
                     tv=TV_old,
+                    pred=pred,
+                    ared=ared,
+                    inner=k - 1,
+                    f_evals=obj.f_evals,
+                    df_evals=obj.df_evals,
+                    dp_s=timers["dp"],
+                    f_s=timers["f"],
+                    df_s=timers["df"],
                 )
-            iteration += 1
+                if par.checkpoint_path:
+                    from ..utils.io import save_checkpoint
+
+                    save_checkpoint(
+                        par.checkpoint_path,
+                        u=u_old.cpu().numpy(),
+                        delta=delta_k,
+                        iteration=iteration,
+                        J=J_old,
+                        tv=TV_old,
+                    )
+                iteration += 1
     finally:
         log.close()
         if profiler is not None:

@@ -63,6 +63,7 @@ from ..ops.bellman import (
 )
 from ..ops.levels import jump_cost_table
 from ..ops.tv import iv_rows, tv_rows
+from ..utils import trace
 from ..utils.init import rand_func
 from .trm import _profiler, dp_route
 
@@ -134,9 +135,11 @@ def _select(mask, new, old):
     return type(old)(*out)
 
 
-def _any(flags) -> bool:
-    """The one host read that ends a Python loop."""
-    return bool(flags.any())
+def _any(flags, what: str) -> bool:
+    """The one host read that ends a Python loop (``what``: ``"outer"`` or
+    ``"inner"``)."""
+    with trace.span("trm.read", what=what):
+        return bool(flags.any())
 
 
 def make_device_trm(obj, par, use_pallas: Optional[bool] = None,
@@ -232,7 +235,8 @@ def make_device_trm(obj, par, use_pallas: Optional[bool] = None,
         """Stage tables and the DP build; single solves drop the start axis."""
         if not batched:
             grad, u_old = grad[0], u_old[0]
-        stage, btilde = stage_tables(grad, u_old, levels, dt)
+        with trace.span("trm.stage"):
+            stage, btilde = stage_tables(grad, u_old, levels, dt)
         if route == "sharded":
             U, phi0 = build_tables_sharded(stage, btilde, jump, B, smax, mesh)
             return U, phi0, pad_level_axis(stage, btilde, jump, D, B)[1]
@@ -259,7 +263,8 @@ def make_device_trm(obj, par, use_pallas: Optional[bool] = None,
     def init_carry(x0s):
         S = x0s.shape[0]
         f0, ys0 = obj._forward_batch(x0s)
-        tv0 = tv_rows(x0s, p)
+        with trace.span("trm.tv"):
+            tv0 = tv_rows(x0s, p)
         ones = torch.ones(S, dtype=torch.int32, device=dev)
         zeros = torch.zeros(S, dtype=torch.int32, device=dev)
         return _Carry(x0s, ys0, f0, tv0, x0s, torch.full_like(f0, math.inf),
@@ -300,8 +305,9 @@ def make_device_trm(obj, par, use_pallas: Optional[bool] = None,
         S = c.u_old.shape[0]
         grad, (U, phi0, btilde), c = gradient_and_tables(c, batched)
         us = chase_wave(U, phi0, btilde, S, batched)          # (S, K, nt, nx)
-        int_vals = dt * iv_rows(grad, c.u_old, us)             # (S, K)
-        TV_news = tv_rows(us, p)
+        with trace.span("trm.tv"):
+            int_vals = dt * iv_rows(grad, c.u_old, us)         # (S, K)
+            TV_news = tv_rows(us, p)
         J_news, ys_b = obj._forward_batch(us.reshape(S * K, *us.shape[2:]))
         J_news = J_news.view(S, K)
         pred_k = int_vals + beta * (c.TV_old[:, None] - TV_news)
@@ -333,8 +339,9 @@ def make_device_trm(obj, par, use_pallas: Optional[bool] = None,
         c = t.c
         caps = torch.floor(t.delta / dt).to(torch.int32)
         u = chase_seq(*tables, caps, batched)                  # (S, nt, nx)
-        int_val = dt * iv_rows(grad, c.u_old, u[:, None])[:, 0]
-        TV_new = tv_rows(u, p)
+        with trace.span("trm.tv"):
+            int_val = dt * iv_rows(grad, c.u_old, u[:, None])[:, 0]
+            TV_new = tv_rows(u, p)
         J_new, ys_new = obj._forward_batch(u)
         pred = int_val + beta * (c.TV_old - TV_new)
         ared = ared_of(c.J_old, J_new, c.TV_old, TV_new)
@@ -353,7 +360,7 @@ def make_device_trm(obj, par, use_pallas: Optional[bool] = None,
                    torch.full((S,), delta0, dtype=dtype, device=dev),
                    torch.zeros(S, dtype=dtype, device=dev),
                    torch.ones(S, dtype=dtype, device=dev), ~active, c)
-        while _any(inner_cond(t)):
+        while _any(inner_cond(t), "inner"):
             for _ in range(inner_unroll):
                 t = _select(inner_cond(t), inner_body(t, tables, grad, batched), t)
         return t.c._replace(it=t.c.it + 1)
@@ -362,19 +369,22 @@ def make_device_trm(obj, par, use_pallas: Optional[bool] = None,
         def outer_cond(c):
             return (~c.stop) & (c.it <= it_hi)
 
-        while _any(outer_cond(c)):
+        while _any(outer_cond(c), "outer"):
             for _ in range(outer_unroll):
-                act = outer_cond(c)
-                cn = (outer_body_speculative(c, batched) if speculative
-                      else outer_body(c, batched, act))
-                c = _select(act, cn, c)
+                with trace.span("trm.outer"):
+                    act = outer_cond(c)
+                    cn = (outer_body_speculative(c, batched) if speculative
+                          else outer_body(c, batched, act))
+                    c = _select(act, cn, c)
         return c
 
     def finalize(c):
         # Reference return convention: J_accepted + β·TV(final candidate)
         # (multi-trust.jl:169 evaluates TV on obj.x, the last DP candidate).
+        with trace.span("trm.tv"):
+            tv_cand = tv_rows(c.u_cand, p)
         return DeviceTRMResult(
-            u=c.u_old, x_final=c.u_cand, J=c.J_ret + beta * tv_rows(c.u_cand, p),
+            u=c.u_old, x_final=c.u_cand, J=c.J_ret + beta * tv_cand,
             f=c.J_old, tv=c.TV_old, converged=c.stop, iterations=c.it - 1,
             inner_steps=c.inner_total, f_evals=c.f_evals, df_evals=c.df_evals,
             dp_builds=c.dp_builds)
@@ -421,7 +431,8 @@ def _segmented_loop(outer, c, outer_chunk, maxiter, progress=None, on_segment=No
                 chunk = min(chunk, 4 * last_done)
         t0 = time.perf_counter()
         c = outer(c, min(it + chunk - 1, maxiter))
-        stop, new_it = bool(c.stop.all()), int(c.it.max())
+        with trace.span("trm.read", what="segment"):
+            stop, new_it = bool(c.stop.all()), int(c.it.max())
         elapsed = time.perf_counter() - t0
         if auto and new_it > it and it > 1:
             # The first segment is skipped: early iterations are cheaper.
@@ -438,7 +449,8 @@ def _segmented_loop(outer, c, outer_chunk, maxiter, progress=None, on_segment=No
 
 def _to_numpy(res: DeviceTRMResult, single: bool) -> DeviceTRMResult:
     """The one copy back from the device at the end of a solve."""
-    host = [t.cpu().numpy() for t in res]
+    with trace.span("trm.read", what="result"):
+        host = [t.cpu().numpy() for t in res]
     if single:
         host = [h[0] for h in host]
     return DeviceTRMResult(*host)
@@ -453,6 +465,16 @@ def _profiled(par, device, fn):
     os.makedirs(par.profile_dir, exist_ok=True)
     profiler.export_chrome_trace(os.path.join(par.profile_dir, "trm_device_trace.json"))
     return out
+
+
+def _solve(par, device, fn):
+    """``_profiled(par, device, fn)`` inside the request's ``solve`` span,
+    which closes with the result's evaluation counts summed over its starts,
+    read from its host copy."""
+    with trace.span("solve") as sp:
+        res = _profiled(par, device, fn)
+        sp.set(f_evals=int(np.sum(res.f_evals)), df_evals=int(np.sum(res.df_evals)))
+    return res
 
 
 def trm_solve_device(obj, par=None, x0=None, seed: Optional[int] = None,
@@ -502,7 +524,7 @@ def trm_solve_device(obj, par=None, x0=None, seed: Optional[int] = None,
                             J=float(c.J_old[0]), tv=float(c.TV_old[0]))
 
     x0s = torch.as_tensor(np.asarray(x0), dtype=obj.dtype, device=obj.device)[None]
-    return _profiled(par, obj.device, lambda: _to_numpy(
+    return _solve(par, obj.device, lambda: _to_numpy(
         run.finalize(run(x0s, False, progress=progress, on_segment=on_segment)),
         single=True))
 
@@ -554,4 +576,4 @@ def multistart_solve_device(obj, par, x0s, mesh=None, use_pallas: Optional[bool]
             res = DeviceTRMResult(*[mesh.all_gather(t, "batch").flatten(0, 1) for t in res])
         return _to_numpy(res, single=False)
 
-    return _profiled(par, obj.device, solve)
+    return _solve(par, obj.device, solve)

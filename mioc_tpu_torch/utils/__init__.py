@@ -1,5 +1,5 @@
-"""Starting controls, the Julia RNG replica, logging, checks, ``.dat`` IO and
-checkpoints."""
+"""Starting controls, the Julia RNG replica, logging, checks, ``.dat`` IO,
+checkpoints, and the program's spans (:mod:`.trace`, imported as a module)."""
 
 from .checks import assert_admissible, check_budget, enable_nan_checks
 from .init import rand_func, rand_func_cont, rand_func_int

@@ -120,6 +120,26 @@ def test_small_solve_counts_launches(cuda_device):
     np.testing.assert_allclose(res.J, ref.J, rtol=1e-12)
 
 
+def test_host_loop_timers_fit_in_the_wall(cuda_device):
+    """The host loop's timers each end in a synchronise, so they time the
+    card's work and not its enqueue: together they fit in the solve's wall,
+    and the gradient's device time is in ``df``."""
+    import time
+
+    from mioc_tpu_torch.models import LVMObj
+    from mioc_tpu_torch.solvers.trm import TRMParameters, trm_solve
+
+    par = TRMParameters(beta=1e-4, delta0=2.0, p=np.inf)
+    trm_solve(LVMObj(nt=128, device=cuda_device), par, seed=0)  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = trm_solve(LVMObj(nt=128, device=cuda_device), par, seed=0)
+    wall = time.perf_counter() - t0
+    assert set(res.timings) == {"dp", "backtrack", "f", "df"}
+    assert res.timings["df"] > 0
+    assert sum(res.timings.values()) <= wall
+
+
 # ------------------------------------------------------------ batched kernels
 
 
