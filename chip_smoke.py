@@ -56,7 +56,10 @@ Run from the root of a checkout.  It builds the CUDA kernels from
       ``dp_build_batched`` and 387 ``chase_batched`` launches;
    d. the same with ``speculative=True``: every field equal to (c), through
       ``dp_build_batched`` and ``chase_trials``.
-   No path may call a plain DP version on the card;
+   No path may call a plain DP version on the card, and every fishing path
+   here and below (the temporal and sharded host loops, the mesh
+   multistarts) launches ``lvm_forward`` once per f sweep and
+   ``lvm_adjoint`` once per ∇f sweep that its spans recorded;
    then ``temporal``: the banded temporal DP (``parallel.temporal``, tensor
    code) at the fishing preset (nt=1024, B=170, L=3), heat500 (500, 100, 36)
    and heat200 (200, 40, 36): ``phis[0].T`` equal to ``dp_build``'s Φ0 to
@@ -74,8 +77,10 @@ Run from the root of a checkout.  It builds the CUDA kernels from
    on a 12×1 quadratic on the card: the JAX package's f (rtol 1e-12),
    iterations and evaluation counts, the quadratic's x within 1e-12
    (``REF_SD_ARMIJO``, ``REF_QUADRATIC``);
-4. times the batched sweeps (ms per batched f and ∇f at the batch sizes the
-   paths use); then ``ode_bits``: the double tank, Van der Pol and Fuller
+4. holds the fishing sweep kernels (``csrc/ode_lvm.cu``) bit-equal to the
+   plain PyTorch sweeps on the card at the row counts the paths use (1, 9,
+   32 and 288 rows, nt=1024), one launch a call, and times both (ms per
+   batched f and ∇f, in turns); then ``ode_bits``: the double tank, Van der Pol and Fuller
    (also with its soft terminal condition) at nt=1024, f and ∇f at ``rand_func(obj, seed=0)`` bit-equal to the JAX
    package's CPU values (``ODE_BITS``: ``float.hex`` of f, sha256 of ∇f),
    with ms per batched f and ∇f at S = 1 and 32;
@@ -204,7 +209,8 @@ Run from the root of a checkout.  It builds the CUDA kernels from
    one card, not scaling.
 
 Each finding is printed as one JSON object per line; the ``kernels`` line
-comes next to last and the last line is
+(every kernel's ms per call, plain ms, bound and launches on each path, the
+fishing sweep kernels' too) comes next to last and the last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any mismatch, exception or failed build exits non-zero before that line.
 Without CUDA, or without the package beside this file, it exits non-zero.
@@ -229,6 +235,16 @@ DEVICE = "cuda"
 # bandwidth, and the non-tensor-core float32 and float64 rates.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
+# The latency of one float64 fma, add or mul on the H100 (a dependent chain
+# of each timed with clock64, profile_kernels.py), and its SM clock at full
+# boost: the bound of the fishing sweep kernels, whose rows are chains of
+# dependent operations.
+F64_LATENCY_CYCLES = 8.3
+SM_CLOCK_HZ = 1.98e9
+# The fishing sweep kernels (csrc/ode_lvm.cu) and the dependent float64
+# operations a step of a row's chain: fma, sub, mul, fma in either sweep.
+SWEEP_KERNELS = ("lvm_forward", "lvm_adjoint")
+SWEEP_CHAIN_OPS = 4
 
 # The JAX package's fishing preset solve, on the CPU at float64, seed 0.
 REF_J = 0.9304798828368771
@@ -767,10 +783,11 @@ def zero_counts(torch):
     from mioc_tpu_torch.ops.backtrack_cuda import (chase, chase_batched, chase_trials,
                                                    chase_vec)
     from mioc_tpu_torch.ops.bellman_cuda import dp_build, dp_build_batched
+    from mioc_tpu_torch.ops.ode_cuda import lvm_adjoint, lvm_forward
 
     kernels = {"dp_build": dp_build, "chase": chase, "dp_build_batched": dp_build_batched,
                "chase_batched": chase_batched, "chase_trials": chase_trials,
-               "chase_vec": chase_vec}
+               "chase_vec": chase_vec, "lvm_forward": lvm_forward, "lvm_adjoint": lvm_adjoint}
     plains = {n: getattr(tb, n) for n in (
         "build_tables_plain", "backtrack_plain", "build_tables_batched_plain",
         "backtrack_batched_plain", "backtrack_trials_plain")}
@@ -812,17 +829,30 @@ def recorded_sweeps() -> dict:
     return counts
 
 
+def require_sweep_launches(name, launches, sweeps) -> None:
+    """A fishing path (``LVMObj`` float64 on the card) launches the forward
+    sweep kernel once per f sweep and the adjoint kernel once per ∇f sweep
+    that its spans recorded, whatever the rows."""
+    f, df = sum(sweeps["f"].values()), sum(sweeps["df"].values())
+    require(f > 0 and df > 0
+            and (launches["lvm_forward"], launches["lvm_adjoint"]) == (f, df),
+            f"{name}: one lvm_forward per f sweep ({f}) and one lvm_adjoint per ∇f sweep "
+            f"({df}): {launches}")
+
+
 def host_path(torch):
     from mioc_tpu_torch.models import LVMObj
     from mioc_tpu_torch.solvers.trm import TRMParameters, trm_solve
 
     par = TRMParameters(**PRESET)
+    record_sweeps()
     read = zero_counts(torch)
     t0 = time.perf_counter()
     res = trm_solve(LVMObj(nt=1024), par, seed=0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, plain_calls = read()
+    sweeps = recorded_sweeps()
 
     t0 = time.perf_counter()
     ref = trm_solve(LVMObj(nt=1024, device="cpu"), par, seed=0)
@@ -832,7 +862,7 @@ def host_path(torch):
           "J": res.J, "converged": res.converged, "iterations": res.iterations,
           "inner_steps": res.inner_steps, "dp_builds": res.dp_builds,
           "f_evals": res.f_evals, "df_evals": res.df_evals,
-          "launches": launches, "plain_calls_on_card": plain_calls,
+          "launches": launches, "plain_calls_on_card": plain_calls, "sweeps": sweeps,
           "wall_s": wall, "timings_s": res.timings,
           "f_ms_per_eval": 1e3 * res.timings["f"] / res.f_evals,
           "df_ms_per_eval": 1e3 * res.timings["df"] / res.df_evals,
@@ -850,6 +880,7 @@ def host_path(torch):
             f"dp_build launches {launches['dp_build']} == dp_builds")
     require(launches["chase"] == res.inner_steps,
             f"chase launches {launches['chase']} == inner steps")
+    require_sweep_launches("host path", launches, sweeps)
     require(not any(plain_calls.values()), f"no plain DP on the card: {plain_calls}")
     require(ref.iterations == res.iterations and ref.inner_steps == res.inner_steps,
             "card solve == CPU solve: iterations")
@@ -887,6 +918,7 @@ def device_single_path(torch, host):
     require(launches["dp_build"] == launches["chase_batched"] == REF_ITERATIONS,
             f"device solve: 41 dp_build and 41 chase_batched launches: {launches}")
     require(launches["chase"] == 0, "device solve's wave chases with chase_batched")
+    require_sweep_launches("device solve", launches, sweeps)
     require(not any(plain_calls.values()), f"no plain DP on the card: {plain_calls}")
     return res, launches, wall, sweeps
 
@@ -925,30 +957,46 @@ def multistart_path(torch, x0s, speculative: bool):
     else:
         require(launches["chase_batched"] == REF32_SEQ_CHASES,
                 f"{name}: {REF32_SEQ_CHASES} chase_batched launches: {launches}")
+    require_sweep_launches(name, launches, sweeps)
     return res, launches, wall, sweeps
 
 
 def sweep_times(torch, x0s) -> dict:
-    """ms per batched f and ∇f at the batch sizes the paths use (S = 1, 9,
-    32, 288 rows), CUDA-event medians of 5 calls each, the sizes in turns
-    (ascending, then descending)."""
+    """The fishing sweeps at the row counts the paths use (S = 1, 9, 32 and
+    288 rows of the 32 starts, nt=1024, float64): the kernel path
+    (``_forward_batch``, ``_adjoint_batch``, one launch of
+    ``csrc/ode_lvm.cu`` each) bit-equal to the plain PyTorch sweeps
+    (``_forward_batch_torch``, ``_adjoint_batch_torch``) on the same inputs
+    in f, the states, ∇f and λ; and ms per batched f and ∇f of each,
+    CUDA-event medians with the host side of the call, in turns (plain,
+    kernel, kernel, plain)."""
     from mioc_tpu_torch.models import LVMObj
+    from mioc_tpu_torch.ops import ode_cuda
 
     obj = LVMObj(nt=1024)
     xs = torch.as_tensor(x0s, dtype=obj.dtype, device=obj.device)
-    times = {"f": {}, "df": {}}
-    sizes = (1, 9, 32, 288)
-    for S in sizes + sizes[::-1]:
+    out = {"f": {}, "df": {}, "plain_f": {}, "plain_df": {}}
+    for S in (1, 9, 32, 288):
         rows = xs[torch.arange(S, device=xs.device) % len(xs)]
-        _, ys = obj._forward_batch(rows)
-        times["f"].setdefault(S, []).extend(
-            median_ms(torch, lambda: obj._forward_batch(rows), 5))
-        times["df"].setdefault(S, []).extend(
-            median_ms(torch, lambda: obj._adjoint_batch(rows, ys), 5))
-    out = {kind: {S: statistics.median(v) for S, v in t.items()}
-           for kind, t in times.items()}
-    emit({"phase": "sweeps", "nt": 1024, "dtype": "float64",
-          "f_ms": out["f"], "df_ms": out["df"]})
+        before = ode_cuda.lvm_forward.launches, ode_cuda.lvm_adjoint.launches
+        f, ys = obj._forward_batch(rows)
+        df, lam = obj._adjoint_batch(rows, ys)
+        after = ode_cuda.lvm_forward.launches, ode_cuda.lvm_adjoint.launches
+        require((after[0] - before[0], after[1] - before[1]) == (1, 1),
+                f"sweeps at {S} rows: one launch of each kernel a call: {before} → {after}")
+        f_t, ys_t = obj._forward_batch_torch(rows)
+        df_t, lam_t = obj._adjoint_batch_torch(rows, ys_t)
+        for name, a, b in (("f", f, f_t), ("ys", ys, ys_t), ("df", df, df_t),
+                           ("lam", lam, lam_t)):
+            require(torch.equal(bits(a, torch), bits(b, torch)),
+                    f"sweeps at {S} rows: the kernel's {name} bit-equal to the plain sweep's")
+        out["f"][S], out["plain_f"][S] = in_turns(
+            torch, lambda: obj._forward_batch_torch(rows), lambda: obj._forward_batch(rows), 2, 5)
+        out["df"][S], out["plain_df"][S] = in_turns(
+            torch, lambda: obj._adjoint_batch_torch(rows, ys),
+            lambda: obj._adjoint_batch(rows, ys), 2, 5)
+    emit({"phase": "sweeps", "nt": 1024, "dtype": "float64", "bit_equal_plain": True,
+          **{f"{kind}_ms": t for kind, t in out.items()}})
     return out
 
 
@@ -2255,6 +2303,7 @@ def temporal_phase(torch) -> dict:
     # start, capped; the kernel route at the same cap is its reference.
     host = trm_solve(LVMObj(nt=1024), TRMParameters(**PRESET, maxiter=TEMPORAL_MAXITER),
                      seed=0)
+    record_sweeps()
     read = zero_counts(torch)
     t0 = time.perf_counter()
     res = trm_solve(LVMObj(nt=1024), TRMParameters(**PRESET, dp_backend="temporal",
@@ -2262,9 +2311,10 @@ def temporal_phase(torch) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, plain_calls = read()
+    sweeps = recorded_sweeps()
     out["host_temporal"] = {"J": res.J, "iterations": res.iterations,
                             "inner_steps": res.inner_steps, "launches": launches,
-                            "plain_calls_on_card": plain_calls, "wall_s": wall,
+                            "plain_calls_on_card": plain_calls, "sweeps": sweeps, "wall_s": wall,
                             "timings_s": res.timings}
     emit(out)
     for name, s in out["shapes"].items():
@@ -2277,8 +2327,10 @@ def temporal_phase(torch) -> dict:
             f"{h['inner_steps']} == the kernel route's")
     require(np.array_equal(res.u, host.u), "temporal host loop: u == the kernel route's")
     require(abs(res.J - host.J) <= 1e-10 * abs(host.J), "temporal host loop: J (rtol 1e-10)")
-    require(not any(launches.values()) and not any(plain_calls.values()),
-            f"temporal host loop: no kernel and no plain DP: {launches} {plain_calls}")
+    require(not any(v for k, v in launches.items() if k not in SWEEP_KERNELS)
+            and not any(plain_calls.values()),
+            f"temporal host loop: no DP kernel and no plain DP: {launches} {plain_calls}")
+    require_sweep_launches("temporal host loop", launches, sweeps)
     return out
 
 
@@ -2394,12 +2446,14 @@ def world_sharded_host(torch, rank) -> dict:
         obj = make()
         par = TRMParameters(**preset, maxiter=SHARDED_MAXITER[name], dp_backend="sharded",
                             mesh=mesh)
+        record_sweeps()
         read = zero_counts(torch)
         res, wall = _timed(torch, lambda: trm_solve(obj, par, seed=0))
         launches, plain_calls = read()
+        sweeps = recorded_sweeps()
         out[name] = {"J": res.J, "iterations": res.iterations, "inner_steps": res.inner_steps,
                      "dp_builds": res.dp_builds, "u": res.u.tolist(), "launches": launches,
-                     "plain_calls_on_card": plain_calls, "wall_s": wall,
+                     "plain_calls_on_card": plain_calls, "sweeps": sweeps, "wall_s": wall,
                      "timings_s": res.timings}
     return out
 
@@ -2425,12 +2479,14 @@ def world_mesh_multistart(torch, rank) -> dict:
             ("2x2_sharded_speculative", (2, 2), dict(speculative=True, dp_backend="sharded"),
              x0s[:MESH_SPEC_STARTS], TRMParameters(**PRESET, maxiter=MESH_SPEC_MAXITER))):
         mesh = make_device_mesh(*shape)
+        record_sweeps()
         read = zero_counts(torch)
         res, wall = _timed(torch, lambda: multistart_solve_device(LVMObj(nt=1024), par, x,
                                                                   mesh=mesh, **kw))
         launches, plain_calls = read()
+        sweeps = recorded_sweeps()
         out[name] = {**_summary(res), "launches": launches, "plain_calls_on_card": plain_calls,
-                     "wall_s": wall}
+                     "sweeps": sweeps, "wall_s": wall}
     return out
 
 
@@ -2549,14 +2605,17 @@ def multi_rank(torch, host, seq) -> dict:
     from mioc_tpu_torch.utils.init import rand_func
 
     # 6: the sharded host loop with no mesh: a world of one (NCCL).
+    record_sweeps()
     read = zero_counts(torch)
     res, wall = _timed(torch, lambda: trm_solve(
         LVMObj(nt=1024), TRMParameters(**PRESET, dp_backend="sharded"), seed=0))
     launches, plain_calls = read()
+    sweeps = recorded_sweeps()
     one = {"phase": "world_of_one", "backend": dist.get_backend(),
            "world": dist.get_world_size(), "J": res.J, "iterations": res.iterations,
            "inner_steps": res.inner_steps, "dp_builds": res.dp_builds, "launches": launches,
-           "plain_calls_on_card": plain_calls, "wall_s": wall, "timings_s": res.timings}
+           "plain_calls_on_card": plain_calls, "sweeps": sweeps, "wall_s": wall,
+           "timings_s": res.timings}
     emit(one)
     require(one["world"] == 1 and one["backend"] == "nccl", "world of one over NCCL")
     require((res.iterations, res.inner_steps) == (host.iterations, host.inner_steps)
@@ -2565,6 +2624,7 @@ def multi_rank(torch, host, seq) -> dict:
     require(launches["dp_build"] == 0 and launches["chase"] == res.inner_steps
             and not any(plain_calls.values()),
             f"world of one: no dp_build, one chase per inner step: {launches}")
+    require_sweep_launches("world of one", launches, sweeps)
 
     # The kernel-route and world-of-one references of phases 2–4.
     refs = {}
@@ -2627,6 +2687,11 @@ def multi_rank(torch, host, seq) -> dict:
             require(n["dp_build"] == 0 and n["chase"] == g["inner_steps"]
                     and not any(g["plain_calls_on_card"].values()),
                     f"sharded_host {name}: 0 dp_build and one chase per inner step: {n}")
+            if name == "fishing":
+                require_sweep_launches(f"sharded_host {name}", n, g["sweeps"])
+            else:
+                require(not any(n[k] for k in SWEEP_KERNELS),
+                        f"sharded_host {name}: no fishing sweep kernel: {n}")
 
     ms = [r["mesh_multistart"] for r in ranks]
     emit({"phase": "mesh_multistart", "backend": out["backend"],
@@ -2654,6 +2719,8 @@ def multi_rank(torch, host, seq) -> dict:
         require(not any(a["plain_calls_on_card"].values())
                 and not any(b["plain_calls_on_card"].values()),
                 "mesh_multistart: no plain DP on the card")
+        require_sweep_launches("mesh_multistart 4x1", a["launches"], a["sweeps"])
+        require_sweep_launches("mesh_multistart 2x2", b["launches"], b["sweeps"])
 
     steps = [r["ode_step_mesh"] for r in ranks]
     emit({"phase": "ode_step_mesh", "backend": out["backend"],
@@ -2863,7 +2930,8 @@ def main() -> int:
              "multistart_sequential": (seq_wall, seq_launches, seq_sweeps),
              "multistart_speculative": (spec_wall, spec_launches, spec_sweeps)}
     for name, (wall, launches, counts) in paths.items():
-        k_s = sum(n * kernel_ms[k] for k, n in launches.items()) / 1e3
+        # the sweep kernels are in the sweeps' estimate
+        k_s = sum(n * kernel_ms[k] for k, n in launches.items() if k not in SWEEP_KERNELS) / 1e3
         sweep_s = sum(n * sweeps[kind][S] for kind in ("f", "df")
                       for S, n in counts[kind].items()) / 1e3
         emit({"phase": "where_the_time_goes", "path": name, "wall_s": wall,
@@ -2985,6 +3053,38 @@ def main() -> int:
                      "temporal_host_launches": temporal["host_temporal"]["launches"][key],
                      "multi_rank_launches_per_rank": {
                          "world_of_one": multi["world_of_one"]["launches"][key],
+                         **{f"sharded_host_{n}": [h[n]["launches"][key]
+                                                  for h in multi["sharded_host"]]
+                            for n in ("fishing", "heat")},
+                         **{f"mesh_multistart_{n}": [m[n]["launches"][key]
+                                                     for m in multi["mesh_multistart"]]
+                            for n in ("4x1_sequential", "2x2_sharded_speculative")}}})
+    # The fishing sweep kernels replace no Pallas kernel (the JAX package's
+    # sweeps are lax.scan loops): ms per call at the multistart's 32 rows
+    # (and at 1, 9 and 288) against the plain sweeps, bit-equal in
+    # sweep_times; the bound is a row's chain of dependent float64
+    # operations, SWEEP_CHAIN_OPS a step; the launches of every path.
+    fishing_launches = {
+        "host_path": host_launches, "device_single": single_launches,
+        "multistart_sequential": seq_launches, "multistart_speculative": spec_launches,
+        "temporal_host": temporal["host_temporal"]["launches"],
+        "world_of_one": multi["world_of_one"]["launches"]}
+    for key, tag, steps in (("lvm_forward", "f", 1024), ("lvm_adjoint", "df", 1023)):
+        chain = steps * SWEEP_CHAIN_OPS
+        rows.append({"name": key, "route": "cuda", "source": "mioc_tpu_torch/csrc/ode_lvm.cu",
+                     "replaces": None, "launches": seq_launches[key],
+                     "path": "multistart_sequential", "shape": "fishing f64 nt=1024, 32 rows",
+                     "max_abs_err": 0.0, "ms": sweeps[tag][32],
+                     "plain_ms": sweeps[f"plain_{tag}"][32],
+                     "bound_ms": chain * F64_LATENCY_CYCLES / SM_CLOCK_HZ * 1e3,
+                     "bound_by": f"latency of {chain} dependent float64 operations",
+                     "library_ms": None, "ms_by_rows": sweeps[tag],
+                     "plain_ms_by_rows": sweeps[f"plain_{tag}"],
+                     "fishing_launches": {p: n[key] for p, n in fishing_launches.items()},
+                     "heat_launches": {p: n[key] for p, n in heat_launches.items()},
+                     "heat_large_launches": {p: n[key] for p, n in large_launches.items()},
+                     "mixed_launches": {p: r["launches"][key] for p, r in mixed.items()},
+                     "multi_rank_launches_per_rank": {
                          **{f"sharded_host_{n}": [h[n]["launches"][key]
                                                   for h in multi["sharded_host"]]
                             for n in ("fishing", "heat")},

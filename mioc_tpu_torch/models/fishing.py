@@ -22,9 +22,15 @@ relaxed controls alike:
   through :func:`~mioc_tpu_torch.objectives.ode.scan_rules`); a gradient
   entry is ``fma(c₂y₁·w₂, λ₁, c₁y₀·w₁·λ₀)``.
 
-The state is an ``(S, 2)`` tensor and both components step together
-(``S = fma(K1, y_swapped, K0) − A`` with ``K0 = (α, −γ)``, ``K1 = (−β,
-δ)``, ``A`` the couplings): 5 small ops a forward step, 11 an adjoint step.
+On the card, in float64 and in float32, each sweep is one launch of
+``csrc/ode_lvm.cu`` (:mod:`~mioc_tpu_torch.ops.ode_cuda`), one thread per
+row, with the same bits: the couplings ``A`` come from
+:meth:`LVMObj._couplings` as for the plain sweeps, and the adjoint's rule
+letters from a table built on first use (:meth:`LVMObj._rules_on_device`).
+On the CPU the sweeps are the plain PyTorch ones
+(:meth:`LVMObj._forward_batch_torch`, :meth:`LVMObj._adjoint_batch_torch`):
+the state is an ``(S, 2)`` tensor and both components step together (``S =
+fma(K1, y_swapped, K0) − A`` with ``K0 = (α, −γ)``, ``K1 = (−β, δ)``).
 The tests hold the bits against the JAX package at nt = 32 … 1200
 (``tests/test_torch_tv_ode.py``), at unroll 1, 2 and 4, and at nt = 33 …
 40 at every unroll (``tests/test_torch_ode_bits.py``).  The steps JAX
@@ -43,6 +49,7 @@ import torch
 from .._device import resolve_dtype
 from ..objectives.base import sweep_span
 from ..objectives.ode import RowwiseODEObjective, _numpy_dtype
+from ..ops import ode_cuda
 from ..ops.levels import bounded_sum_levels
 from ..ops.xla_order import const_dot, fma, window_sum
 
@@ -141,15 +148,49 @@ class LVMObj(RowwiseODEObjective):
         return torch.zeros_like(u)
 
     # -- sweeps in the JAX package's CPU rounding (module docstring) -----------
-    def _step_consts(self, xs):
+    _rule_table = (None, None)  # ((nt, unroll, device), the adjoint kernel's letters)
+
+    def _rules_on_device(self, device):
+        """The adjoint kernel's rule table on ``device``
+        (:func:`~mioc_tpu_torch.ops.ode_cuda.rule_table` of
+        :meth:`adjoint_rules`), built on first use and again where ``nt`` or
+        ``sweep_unroll`` changed since, as the plain sweep reads the rules at
+        every evaluation."""
+        key = (self.nt, self.scan_unroll(), device)
+        if self._rule_table[0] != key:
+            self._rule_table = (key, ode_cuda.rule_table(self.adjoint_rules(), device))
+        return self._rule_table[1]
+
+    def _couplings(self, xs):
+        """The couplings ``(a, c)`` of every row and step, time-major ``(nt,
+        S, 2)``."""
         a, c = self.step_terms(xs)  # (S, nt) each
-        A = torch.stack([a, c], dim=-1).transpose(0, 1).contiguous()  # (nt, S, 2)
+        return torch.stack([a, c], dim=-1).transpose(0, 1).contiguous()
+
+    def _step_consts(self, xs):
+        A = self._couplings(xs)
         K0 = torch.tensor([self.alpha, -self.gamma], dtype=xs.dtype, device=xs.device)
         K1 = torch.tensor([-self.beta, self.delta], dtype=xs.dtype, device=xs.device)
         return A, K0, K1
 
     @sweep_span("f")
     def _forward_batch(self, xs):
+        if xs.is_cuda:
+            return ode_cuda.lvm_forward(self._couplings(xs), self.state0, self.alpha,
+                                        self.beta, self.gamma, self.delta, self.tau)
+        return self._forward_batch_torch(xs)
+
+    @sweep_span("df")
+    def _adjoint_batch(self, xs, ys):
+        if xs.is_cuda:
+            return ode_cuda.lvm_adjoint(self._couplings(xs), ys,
+                                        self._rules_on_device(xs.device), self.state0,
+                                        self._v1, self._v2, self.alpha, self.beta, self.gamma,
+                                        self.delta, self.c1, self.c2, self.tau)
+        return self._adjoint_batch_torch(xs, ys)
+
+    def _forward_batch_torch(self, xs):
+        """The plain forward sweep: a few small ops a step."""
         tau, nt = self.tau, self.nt
         S = xs.shape[0]
         A, K0, K1 = self._step_consts(xs)
@@ -164,8 +205,8 @@ class LVMObj(RowwiseODEObjective):
         d0, d1 = yall[..., 0] - 1.0, yall[..., 1] - 1.0
         return tau * window_sum(self._trap_w * (0.5 * fma(d0, d0, d1 * d1))), ys
 
-    @sweep_span("df")
-    def _adjoint_batch(self, xs, ys):
+    def _adjoint_batch_torch(self, xs, ys):
+        """The plain adjoint sweep: about a dozen small ops a step."""
         tau, nt = self.tau, self.nt
         S = xs.shape[0]
         A, K0, K1 = self._step_consts(xs)

@@ -22,8 +22,11 @@ tensors, so a batch costs the launches of one sweep.  A single evaluation is
 the batch of one row, so every row of a batch has the bits of the single
 sweep of that row, whatever S is: the per-step arithmetic is elementwise and
 the trapezoid sum is :func:`~mioc_tpu_torch.ops.tv.fold_sum`.  On the card
-the sweeps are bound by kernel-launch latency (a CUDA graph or a sweep
-kernel is later work).
+these generic sweeps are bound by kernel-launch latency.  The bundled
+fishing model (:class:`~mioc_tpu_torch.models.fishing.LVMObj`) runs each
+sweep on the card, in float64 or float32, as one launch of ``csrc/ode_lvm.cu``
+(:mod:`~mioc_tpu_torch.ops.ode_cuda`), with the same bits as its PyTorch
+sweeps; the other bundled models still step op by op.
 
 Users implement ``F(y, u, i)`` and ``G(y, u, i)`` for one row only; the
 Jacobians default to ``torch.func`` (``jacfwd``, ``vjp``, ``grad``) of those,

@@ -48,6 +48,10 @@ shape instead (``HeatObj(nt=200)`` on 8321 dofs: nt=200, L=36, B=40), then
 :func:`large_sweep_section`: the kernels and device µs of a step of that
 model's sparse sweeps, by kernel.
 
+The fishing sweep kernels (``csrc/ode_lvm.cu``, :func:`lvm_sweep_section`):
+device µs and ms per call at 1, 32 and 288 rows of ``LVMObj(nt=1024)``,
+against the plain PyTorch sweeps; ``--lvm-only`` runs just that section.
+
 It also samples the SM clock (``nvidia-smi --query-gpu=clocks.sm``) while
 ``dp_build`` runs back to back for a second at each shape: a kernel that
 keeps one SM busy may not lift the card to its full clock.  First of all,
@@ -377,6 +381,56 @@ def build_sweep() -> list:
     for r, call in calls:
         r["device_ms"] = device_ms(call, "dp_build_kernel", reps=10)
     return rows
+
+
+LVM_ROWS = (1, 32, 288)  # the host loop, the multistart's ∇f, its 9-trial wave
+
+
+def lvm_sweep_section(nt: int = 1024) -> list:
+    """The fishing sweeps (``csrc/ode_lvm.cu``) at ``LVMObj(nt)`` in float64
+    for 1, 32 and 288 rows of binary controls: the device µs of each kernel,
+    the ms of a whole ``_forward_batch`` / ``_adjoint_batch`` call with CUDA
+    events (the couplings, the wrapper and the launch included) and host µs
+    to issue one, each against the plain PyTorch sweeps on the card, which
+    must give the same bits; and the bounds of the kernels: the dependent
+    float64 operations of a row's chain and the bytes each moves."""
+    from .models import LVMObj
+    from .utils.init import rand_func
+
+    rows_out = []
+    for rows in LVM_ROWS:
+        obj = LVMObj(nt=nt, device="cuda")
+        X = torch.as_tensor(np.stack([rand_func(obj, seed=r) for r in range(rows)]),
+                            dtype=torch.float64, device="cuda")
+        f, ys = obj._forward_batch(X)
+        df, lam = obj._adjoint_batch(X, ys)
+        f_t, ys_t = obj._forward_batch_torch(X)
+        df_t, lam_t = obj._adjoint_batch_torch(X, ys_t)
+        for a, b in ((f, f_t), (ys, ys_t), (df, df_t), (lam, lam_t)):
+            if not torch.equal(a, b):
+                raise RuntimeError(f"lvm sweeps at {rows} rows differ from the plain sweeps")
+        fwd_bytes = rows * (nt * 16 * 2 + 8)  # A in, ys out, f out
+        adj_bytes = rows * nt * (16 * 2 + 16 + 8 * obj.nx)  # A, ys in; λ, ∇f out
+        rows_out.append({
+            "rows": rows, "nt": nt,
+            # the host-clock and event timings before the first profiler trace
+            "forward_call_ms": _events_ms(lambda: obj._forward_batch(X)),
+            "adjoint_call_ms": _events_ms(lambda: obj._adjoint_batch(X, ys)),
+            "forward_host_us": _host_us(lambda: obj._forward_batch(X), n=200),
+            "adjoint_host_us": _host_us(lambda: obj._adjoint_batch(X, ys), n=200),
+            "forward_device_us": 1e3 * device_ms(lambda: obj._forward_batch(X),
+                                                 "lvm_forward_kernel"),
+            "adjoint_device_us": 1e3 * device_ms(lambda: obj._adjoint_batch(X, ys),
+                                                 "lvm_adjoint_kernel"),
+            "plain_forward_call_ms": _events_ms(lambda: obj._forward_batch_torch(X), reps=3),
+            "plain_adjoint_call_ms": _events_ms(lambda: obj._adjoint_batch_torch(X, ys),
+                                                reps=3),
+            "chain_ops": {"forward": 4 * nt, "adjoint": 4 * (nt - 1)},
+            "bytes": {"forward": fwd_bytes, "adjoint": adj_bytes},
+            "byte_bound_us": {"forward": fwd_bytes / 3.35e12 * 1e6,
+                              "adjoint": adj_bytes / 3.35e12 * 1e6},
+        })
+    return rows_out
 
 
 def device_ms(fn, kernel: str, reps: int = 20):
@@ -766,12 +820,17 @@ def main(argv=None) -> int:
                     help="only the kernels at the heat solve's shape")
     ap.add_argument("--heat-large", action="store_true",
                     help="only the large-mesh heat solve: its kernels and its sweep step")
+    ap.add_argument("--lvm-only", action="store_true",
+                    help="only the fishing sweep kernels (csrc/ode_lvm.cu)")
     args = ap.parse_args(argv)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60, check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     _kernels.build_all(_kernels.SOURCES + _kernels.PROBES)
+    if args.lvm_only:
+        print(json.dumps({"lvm_sweeps": lvm_sweep_section(), "nvidia_smi": smi}), flush=True)
+        return 0
     if args.heat_only:
         print(json.dumps({"heat_solve": heat_solve_section(), "nvidia_smi": smi}), flush=True)
         return 0
@@ -791,6 +850,7 @@ def main(argv=None) -> int:
     print(json.dumps({"batched": batched_section(), "nvidia_smi": smi}), flush=True)
     print(json.dumps({"phase_costs": phase_costs(), "nvidia_smi": smi}), flush=True)
     print(json.dumps({"heat_solve": heat_solve_section(), "nvidia_smi": smi}), flush=True)
+    print(json.dumps({"lvm_sweeps": lvm_sweep_section(), "nvidia_smi": smi}), flush=True)
     bodies = {name: _body_variant(name) for name in BODY_VARIANTS}
     for name, nt, B, spec, preset in SHAPES:
         stage, btilde, jump, smax = _tables(nt, B, spec, preset, torch.float64)

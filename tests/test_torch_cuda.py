@@ -973,3 +973,83 @@ def test_fuller_terminal_weight_on_the_card_equals_the_cpu(cuda_device):
         out[str(dev)] = [t.cpu().numpy() for t in (f, ys, df, lam)]
     for a, b in zip(out["cpu"], out[str(cuda_device)]):
         np.testing.assert_array_equal(a.view(np.int64), b.view(np.int64))
+
+
+def _lvm_controls(obj, rows, kind, seed):
+    """``rows`` controls of one ``kind``: binary (``rand_func``), relaxed
+    (uniform in [0, 1]), or relaxed with a NaN at one step of every row."""
+    from mioc_tpu_torch.utils.init import rand_func
+
+    rng = np.random.default_rng(seed)
+    if kind == "binary":
+        X = np.stack([rand_func(obj, seed=seed + r) for r in range(rows)])
+    else:
+        X = rng.random((rows, obj.nt, obj.nx))
+        if kind == "nan":
+            X[np.arange(rows), rng.integers(0, obj.nt, rows), rng.integers(0, obj.nx, rows)] = np.nan
+    return torch.as_tensor(X, dtype=obj.dtype, device=obj.device)
+
+
+def _bits(t):
+    """int64 view with every NaN the same (its sign and payload are not part
+    of the claim)."""
+    a = t.detach().cpu().numpy().astype(np.float64)
+    b = a.view(np.int64).copy()
+    b[np.isnan(a)] = 0x7FF8000000000000
+    return b
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("rows", [1, 32, 288])
+@pytest.mark.parametrize("unroll", [1, 2, 4, 8])
+@pytest.mark.parametrize("nt", [8, 39, 57, 1024, 1200])
+def test_lvm_sweep_kernels_bit_equal_the_torch_path(cuda_device, nt, unroll, rows, dtype):
+    """On the card, in float64 and in float32, ``LVMObj``'s sweeps are one
+    launch each of ``csrc/ode_lvm.cu``, and give the bits of the plain
+    PyTorch sweeps on the card: f, the states, ∇f and λ, for binary and
+    relaxed controls and rows holding a NaN."""
+    from mioc_tpu_torch import models
+    from mioc_tpu_torch.ops import ode_cuda
+
+    obj = models.LVMObj(nt=nt, device=cuda_device, dtype=dtype)
+    obj.sweep_unroll = unroll
+    obj._build()
+    for i, kind in enumerate(("binary", "relaxed", "nan")):
+        X = _lvm_controls(obj, rows, kind, seed=100 * nt + 10 * unroll + i)
+        n_f, n_a = ode_cuda.lvm_forward.launches, ode_cuda.lvm_adjoint.launches
+        f, ys = obj._forward_batch(X)
+        assert (ode_cuda.lvm_forward.launches, ode_cuda.lvm_adjoint.launches) == (n_f + 1, n_a)
+        f_t, ys_t = obj._forward_batch_torch(X)
+        df, lam = obj._adjoint_batch(X, ys_t)
+        assert (ode_cuda.lvm_forward.launches, ode_cuda.lvm_adjoint.launches) == (n_f + 1,
+                                                                                   n_a + 1)
+        df_t, lam_t = obj._adjoint_batch_torch(X, ys_t)
+        torch.cuda.synchronize()
+        assert f.shape == (rows,) and ys.shape == (nt, rows, 2)
+        assert f.dtype == ys.dtype == df.dtype == lam.dtype == dtype
+        assert df.shape == (rows, nt, 3) and lam.shape == (rows, nt, 2)
+        for name, a, b in (("f", f, f_t), ("ys", ys, ys_t), ("df", df, df_t),
+                           ("lam", lam, lam_t)):
+            np.testing.assert_array_equal(_bits(a), _bits(b), err_msg=f"{kind} {name}")
+        if kind == "nan":
+            assert torch.isnan(f).all()
+        else:
+            assert torch.isfinite(df).all()
+
+
+def test_lvm_sweeps_launch_once_per_evaluation(cuda_device):
+    """Through the objective's protocol (``eval_f_``, ``eval_df_``) an
+    evaluation on the card, in float64 and in float32, is one forward and
+    one adjoint launch."""
+    from mioc_tpu_torch import models
+    from mioc_tpu_torch.ops import ode_cuda
+    from mioc_tpu_torch.utils.init import rand_func
+
+    for dtype in (torch.float64, torch.float32):
+        obj = models.LVMObj(nt=120, device=cuda_device, dtype=dtype)
+        obj.x = obj.as_control(rand_func(obj, seed=3))
+        n_f, n_a = ode_cuda.lvm_forward.launches, ode_cuda.lvm_adjoint.launches
+        obj.eval_f_()
+        obj.eval_df_()
+        assert (ode_cuda.lvm_forward.launches - n_f,
+                ode_cuda.lvm_adjoint.launches - n_a) == (1, 1), dtype
