@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``mioc_tpu_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--heat-only]
 
-Run from the root of a checkout.  It builds the CUDA kernels from
+Run from the root of a checkout (``--heat-only``: the build, then only the
+heat paths of 7, ``heat_rows`` and ``pde_sweep``).  It builds the CUDA kernels from
 ``mioc_tpu_torch/csrc`` (one ``nvcc`` per source, all at once), then:
 
 1. holds the single-start kernels (``dp_build``, ``chase``, ``chase_vec``)
@@ -134,9 +135,14 @@ Run from the root of a checkout.  It builds the CUDA kernels from
       equal to the sequential one field for field; through
       ``dp_build_batched`` in a cluster form (C > 1, printed with the plan)
       and ``chase_batched`` (sequential) or ``chase_trials`` (speculative);
+   each heat path launching the dense sweep kernel (``csrc/pde_dense.cu``)
+   once per f and once per ∇f sweep that its spans recorded;
    then ``heat_rows``: a heat forward and adjoint evaluated as 1, 2, 8, 9,
    16, 17, 64 and 72 rows, every row bit-equal to the single evaluation of
-   that row, with the ms per batched f and ∇f at each row count; the
+   that row, with the ms per batched f and ∇f at each row count; then
+   ``pde_sweep``: the dense sweep kernel alone at 1, 8, 16 and 64 rows,
+   forward and reverse, against the plain sweep (to 1e-13; ms per call
+   beside the library's sweep, ``library_ms``); the
    kernels at the heat solve's shape (``dp_build``, ``chase``, ``chase_vec``;
    the S=8 batched kernels with the preset's 8 halving caps; ``chase_trials``
    on one table set with those caps), each held against its plain version;
@@ -245,6 +251,8 @@ SM_CLOCK_HZ = 1.98e9
 # operations a step of a row's chain: fma, sub, mul, fma in either sweep.
 SWEEP_KERNELS = ("lvm_forward", "lvm_adjoint")
 SWEEP_CHAIN_OPS = 4
+# The dense PDE sweep kernel (csrc/pde_dense.cu): one launch per heat sweep.
+PDE_SWEEP_KERNEL = "dense_sweep"
 
 # The JAX package's fishing preset solve, on the CPU at float64, seed 0.
 REF_J = 0.9304798828368771
@@ -784,10 +792,12 @@ def zero_counts(torch):
                                                    chase_vec)
     from mioc_tpu_torch.ops.bellman_cuda import dp_build, dp_build_batched
     from mioc_tpu_torch.ops.ode_cuda import lvm_adjoint, lvm_forward
+    from mioc_tpu_torch.ops.pde_cuda import dense_sweep
 
     kernels = {"dp_build": dp_build, "chase": chase, "dp_build_batched": dp_build_batched,
                "chase_batched": chase_batched, "chase_trials": chase_trials,
-               "chase_vec": chase_vec, "lvm_forward": lvm_forward, "lvm_adjoint": lvm_adjoint}
+               "chase_vec": chase_vec, "lvm_forward": lvm_forward, "lvm_adjoint": lvm_adjoint,
+               "dense_sweep": dense_sweep}
     plains = {n: getattr(tb, n) for n in (
         "build_tables_plain", "backtrack_plain", "build_tables_batched_plain",
         "backtrack_batched_plain", "backtrack_trials_plain")}
@@ -1532,17 +1542,84 @@ def heat_rows(torch) -> dict:
     return out
 
 
+def require_dense_sweeps(name, launches, sweeps) -> None:
+    """A heat path (dense ``HeatObj`` on the card) launches the dense sweep
+    kernel once per f and once per ∇f sweep that its spans recorded,
+    whatever the rows."""
+    n = sum(sweeps["f"].values()) + sum(sweeps["df"].values())
+    require(n > 0 and launches[PDE_SWEEP_KERNEL] == n,
+            f"{name}: one {PDE_SWEEP_KERNEL} per sweep ({n}): {launches}")
+
+
+# Row counts of the pde_sweep phase: a host-loop sweep, heat.device's wave,
+# one group of 16, heat.multistart8's wave.
+PDE_SWEEP_ROWS = (1, 8, 16, 64)
+
+
+def pde_sweep_phase(torch) -> dict:
+    """The dense sweep kernel (``csrc/pde_dense.cu``) at heat's shape (N =
+    545, nt = 500, float64) against the plain sweep ``PDEObjective._sweep``
+    (one ``torch.matmul`` of 16 rows a step: the library's product, whose
+    ms per call is ``library_ms``), forward and reverse at
+    :data:`PDE_SWEEP_ROWS` rows: the iterates to 1e-13 of the largest, one
+    launch a call, and the ms per call with the host side (CUDA-event
+    medians, in turns: library, kernel, kernel, library) beside the bound
+    (2·R·N² operations a step at the float64 peak)."""
+    from mioc_tpu_torch.models import HeatObj
+    from mioc_tpu_torch.objectives.pde import _pad_rows
+    from mioc_tpu_torch.ops import pde_cuda
+    from mioc_tpu_torch.utils.init import rand_func
+
+    obj = HeatObj(nt=HEAT_NT)
+    N = obj.Nglobal_dofs
+    X = torch.as_tensor(np.stack([rand_func(obj, seed=s) for s in range(max(PDE_SWEEP_ROWS))]),
+                        dtype=obj.dtype, device=obj.device)
+    drive = obj._drive(X.transpose(0, 1)).contiguous()
+    out = {"phase": "pde_sweep", "nt": HEAT_NT, "N": N, "dtype": "float64",
+           "clusters_held": pde_cuda._clusters(torch.cuda.current_device(), N, 8),
+           "by_rows": {}}
+    for R in PDE_SWEEP_ROWS:
+        dd = drive[:, :R].contiguous()
+        for name, v_end, op, rev in (("forward", obj.state0, obj._SinvT, False),
+                                     ("reverse", None, obj.Sinv, True)):
+            def kernel():
+                return pde_cuda.dense_sweep(v_end, dd, op, rev)
+
+            def library():
+                return obj._sweep(0.0 if v_end is None else v_end, _pad_rows(dd), op, rev)
+
+            n0 = pde_cuda.dense_sweep.launches
+            k = kernel()
+            require(pde_cuda.dense_sweep.launches == n0 + 1, f"pde_sweep: one launch a call")
+            plain = library()[:, :R]
+            err = float((k - plain).abs().max() / plain.abs().max())
+            k_ms, lib_ms = in_turns(torch, library, kernel, 2, 5)
+            ops = 2 * R * N * N * HEAT_NT
+            out["by_rows"].setdefault(R, {})[name] = {
+                "group_rows": pde_cuda.group_rows(R, N, obj.dtype, obj.device),
+                "max_rel_err": err, "ms": k_ms, "library_ms": lib_ms,
+                "us_per_step": 1e3 * k_ms / HEAT_NT,
+                "bound_ms": bound(8 * (N * N + 2 * HEAT_NT * R * N), ops, "float64")[0]}
+            require(err <= 1e-13, f"pde_sweep {name} at {R} rows: rel err {err} ≤ 1e-13")
+    emit(out)
+    return out
+
+
 def heat_host_path(torch, tmp) -> dict:
     """(e): the JAX CLI's heat example through the port's CLI, host loop."""
     ck = os.path.join(tmp, "heat.npz")
+    record_sweeps()
     r = run_cli(torch, "heat_host", ["heat", "--n", str(HEAT_NT), "--seed", "0",
                                      "--no-plot", "--no-log", "--checkpoint", ck])
+    r["sweeps"] = recorded_sweeps()
     check_cli(r, f"heat --n {HEAT_NT}")
     n = r["launches"]
     require(n["dp_build"] == r["iterations"] and n["chase"] == r["f_evals"] - 1
-            and not any(v for k, v in n.items() if k not in ("dp_build", "chase")),
+            and not any(v for k, v in n.items()
+                        if k not in ("dp_build", "chase", PDE_SWEEP_KERNEL)),
             f"heat_host: {r['iterations']} dp_build and {r['f_evals'] - 1} chase "
-            f"launches, no other kernel: {n}")
+            f"launches, no other DP kernel: {n}")
+    require_dense_sweeps("heat_host", n, r["sweeps"])
     with np.load(ck) as z:
         r["u"] = z["u"]
     return r
@@ -1581,8 +1658,9 @@ def heat_device_path(torch, host) -> tuple:
     require(np.array_equal(res.u, host["u"]), "heat device solve == host: accepted u")
     require(launches["dp_build"] == launches["chase_trials"] == its
             and not any(v for k, v in launches.items()
-                        if k not in ("dp_build", "chase_trials")),
+                        if k not in ("dp_build", "chase_trials", PDE_SWEEP_KERNEL)),
             f"heat device solve: {its} dp_build and {its} chase_trials launches: {launches}")
+    require_dense_sweeps("heat device solve", launches, sweeps)
     require(not any(plain_calls.values()), "heat device: no plain DP on the card")
     return res, launches, wall, sweeps
 
@@ -1623,8 +1701,9 @@ def heat_multistart_path(torch, x0s, speculative: bool) -> tuple:
     wave = "chase_trials" if speculative else "chase_batched"
     require(launches["dp_build_batched"] == its and launches[wave] >= its
             and not any(v for k, v in launches.items()
-                        if k not in ("dp_build_batched", wave)),
+                        if k not in ("dp_build_batched", wave, PDE_SWEEP_KERNEL)),
             f"{name}: {its} dp_build_batched and the {wave} chases only: {launches}")
+    require_dense_sweeps(name, launches, sweeps)
     for s in range(S):
         require(int(res.iterations[s]) == REF8_HEAT_ITERATIONS[s]
                 and int(res.inner_steps[s]) == REF8_HEAT_INNER[s],
@@ -2821,7 +2900,30 @@ def plots_phase(torch) -> dict:
     return out
 
 
-def main() -> int:
+def heat_only(torch) -> int:
+    """``--heat-only``: the heat paths of 7 (e–g), ``heat_rows`` and
+    ``pde_sweep`` alone, after the build."""
+    import tempfile
+
+    from mioc_tpu_torch.fem import _native_triangle
+    from mioc_tpu_torch.models import HeatObj
+    from mioc_tpu_torch.utils.init import rand_func
+
+    require(_native_triangle.available(), "the native triangulator builds")
+    with tempfile.TemporaryDirectory() as tmp:
+        host = heat_host_path(torch, tmp)
+    single = heat_device_path(torch, host)
+    x0s = np.stack([rand_func(HeatObj(nt=HEAT_NT), seed=s) for s in range(HEAT_STARTS)])
+    seq = heat_multistart_path(torch, x0s, False)
+    spec = heat_multistart_path(torch, x0s, True)
+    check_heat_multistarts(seq[0], spec[0], single[0])
+    heat_rows(torch)
+    pde_sweep_phase(torch)
+    emit({"ok": True, "heat_only": True})
+    return 0
+
+
+def main(heat: bool = False) -> int:
     t_start = time.perf_counter()
     if not os.path.isdir(os.path.join(ROOT, "mioc_tpu_torch")):
         print("chip_smoke.py: the mioc_tpu_torch package is not beside this file",
@@ -2849,6 +2951,8 @@ def main() -> int:
     ptxas = {n: [ln.strip() for ln in _kernels.build_log(n).splitlines()
                  if "registers" in ln or "spill" in ln] for n in _kernels.SOURCES}
     emit({"phase": "build", "seconds": build_s, "ptxas": ptxas})
+    if heat:
+        return heat_only(torch)
 
     phases = {}
     for seed, (name, nt, B, spec, preset) in enumerate(SHAPES):
@@ -2903,6 +3007,7 @@ def main() -> int:
     heat_spec = heat_multistart_path(torch, heat_x0s, True)
     check_heat_multistarts(heat_seq[0], heat_spec[0], heat_single)
     hrows = heat_rows(torch)
+    pde_sweep = pde_sweep_phase(torch)
     _, hnt, hB, hspec, hpreset = HEAT_SHAPE
     heat64 = kernel_phase(torch, "heat500", hnt, hB, hspec, hpreset, torch.float64, 30)
     heat_batched = batched_phase(torch, "heat500", HEAT_STARTS, HEAT_SHAPE,
@@ -2982,7 +3087,9 @@ def main() -> int:
         per_call = dict(heat_kernel_ms)
         if name == "heat_device":  # one table set of K caps, not S = 8 sets
             per_call["chase_trials"] = heat_wave["chase_trials"]["kernel_ms"]
-        kernels_s = {k: n * per_call[k] / 1e3 for k, n in launches.items() if n}
+        # the sweep kernel is in the sweeps' estimate
+        kernels_s = {k: n * per_call[k] / 1e3 for k, n in launches.items()
+                     if n and k != PDE_SWEEP_KERNEL}
         sweep_s = {kind: sum(n * hrows[f"{kind}_ms"][R] for R, n in counts[kind].items()) / 1e3
                    for kind in ("f", "df")}
         emit({"phase": "where_the_time_goes", "path": name, "wall_s": wall,
@@ -3091,6 +3198,21 @@ def main() -> int:
                          **{f"mesh_multistart_{n}": [m[n]["launches"][key]
                                                      for m in multi["mesh_multistart"]]
                             for n in ("4x1_sequential", "2x2_sharded_speculative")}}})
+    # The dense PDE sweep kernel replaces no Pallas kernel (the JAX package's
+    # sweep is a lax.scan of one product a step): ms per call at 8 rows (the
+    # heat device loop's wave) and at every row count of pde_sweep, against
+    # the library's sweep, and its launches on every heat path.
+    key, by = PDE_SWEEP_KERNEL, pde_sweep["by_rows"]
+    rows.append({"name": key, "route": "cuda", "source": "mioc_tpu_torch/csrc/pde_dense.cu",
+                 "replaces": None, "launches": heat_launches["heat_device"][key],
+                 "path": "heat_device", "shape": f"heat f64 nt={HEAT_NT}, N={HEAT_N}, 8 rows",
+                 "max_rel_err": max(r[d]["max_rel_err"] for r in by.values() for d in r),
+                 "ms": by[8]["forward"]["ms"], "library_ms": by[8]["forward"]["library_ms"],
+                 "bound_ms": by[8]["forward"]["bound_ms"], "bound_by": "operations",
+                 "ms_by_rows": {R: r["forward"]["ms"] for R, r in by.items()},
+                 "library_ms_by_rows": {R: r["forward"]["library_ms"] for R, r in by.items()},
+                 "heat_launches": {p: n[key] for p, n in heat_launches.items()},
+                 "heat_large_launches": {p: n[key] for p, n in large_launches.items()}})
     # Last, as a profiler trace slows every later launch of the process: the
     # kernels of a large-mesh sweep step and of one fine banded application.
     from mioc_tpu_torch.profile_kernels import large_sweep_section
@@ -3109,4 +3231,4 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--world-rank"]:
         sys.exit(world_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]))
-    sys.exit(main())
+    sys.exit(main(heat=sys.argv[1:2] == ["--heat-only"]))

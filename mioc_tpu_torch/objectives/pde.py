@@ -36,7 +36,11 @@ rows, the cost products over all ``(nt+1)·R`` state rows in chunks of
 :data:`COST_ROWS`, and every sum is a :func:`~mioc_tpu_torch.ops.tv.fold_sum`.
 A single evaluation is a batch of one row.  (The JAX package reaches the same
 end on the TPU by evaluating a single forward as a duplicated 2-row batch,
-``mioc_tpu/objectives/pde.py:506-509``.)
+``mioc_tpu/objectives/pde.py:506-509``.)  On the card (float64 or float32, an
+N that :func:`~mioc_tpu_torch.ops.pde_cuda.dense_fits` takes) a dense sweep is
+instead one launch of the sweep kernel (``csrc/pde_dense.cu``) over exactly
+the rows passed: its dot products run in an order fixed by N alone, so each
+row again has its single evaluation's bits.
 
 Sparse modes.  ``mode="cg"``/``"mg"`` solve ``K y_k = M y_{k−1} + τ F
 u_{k−1}`` (``K = M + τA``) per step with ``cg_iters`` preconditioned CG
@@ -64,6 +68,7 @@ from torch.func import grad, vmap
 from .._device import resolve_device, resolve_dtype
 from ..fem import banded_device
 from ..fem.sparse_device import cg_solve_rows
+from ..ops import pde_cuda
 from ..ops.rows import ROWS, chunked
 from ..ops.tv import fold_sum
 from .base import LazyObjective, sweep_span
@@ -415,12 +420,30 @@ class PDEObjective(LazyObjective):
             acc = acc + xs_tm[..., j:j + 1] * self._MFT[j]
         return self.tau * acc
 
+    def _dense_kernel(self) -> bool:
+        """Whether the dense sweeps run as one launch of the sweep kernel
+        (:func:`~mioc_tpu_torch.ops.pde_cuda.dense_fits`: a CUDA device,
+        float64 or float32, an N the kernel holds); else :meth:`_sweep`."""
+        return pde_cuda.dense_fits(self.Nglobal_dofs, self.dtype, self.device)
+
+    def _dense(self, v_end, drive, op, reverse):
+        """The dense sweep of ``drive (nt, R, N)`` with ``v_end`` an ``(N,)``
+        row or None (0): all ``(nt+1, R, N)`` iterates (:meth:`_sweep`), by
+        the kernel where it serves."""
+        if self._dense_kernel():
+            return pde_cuda.dense_sweep(v_end, drive.contiguous(), op, reverse)
+        R = drive.shape[1]
+        return self._sweep(0.0 if v_end is None else v_end, _pad_rows(drive), op,
+                           reverse)[:, :R]
+
     def _sweep(self, v_end, drive, op, reverse):
         """The sweep recursion over ``drive (nt, Rp, N)`` (Rp a multiple of
         ROWS): forward ``v_{k+1} = (v_k + drive[k]) @ op`` from ``v_0 =
         v_end``, or reverse ``v_k = (v_{k+1} + drive[k]) @ op`` from ``v_nt =
         v_end``.  Returns all ``(nt+1, Rp, N)`` iterates; each product is on
-        ROWS rows."""
+        ROWS rows.  The plain version of the sweep kernel
+        (:mod:`~mioc_tpu_torch.ops.pde_cuda`), and the path wherever that
+        does not serve."""
         nt, Rp, N = drive.shape
         out = drive.new_empty((nt + 1, Rp, N))
         if reverse:
@@ -479,8 +502,7 @@ class PDEObjective(LazyObjective):
         R = xs.shape[0]
         xs_tm = xs.transpose(0, 1)                                  # (nt, R, nx)
         if self._engine is None:
-            drive = _pad_rows(self._drive(xs_tm))
-            ys = self._sweep(self.state0, drive, self._SinvT, False)[:, :R]  # (nt+1, R, N)
+            ys = self._dense(self.state0, self._drive(xs_tm), self._SinvT, False)  # (nt+1, R, N)
         else:
             ys = self._cg_forward(xs_tm)
         uu = xs_tm[self._u_idx]                                     # (nt+1, R, nx)
@@ -503,7 +525,7 @@ class PDEObjective(LazyObjective):
                            k_src.repeat_interleave(R)).view(nt, R, N)
         drive = (self.tau * self._adj_w)[:, None, None] * gy
         if self._engine is None:
-            lam_tm = self._sweep(0.0, _pad_rows(drive), self.Sinv, True)[:nt, :R]  # (nt, R, N)
+            lam_tm = self._dense(None, drive, self.Sinv, True)[:nt]  # (nt, R, N)
         else:
             lam_tm = self._cg_adjoint(drive)
         lam = lam_tm.transpose(0, 1)                                # (R, nt, N)
@@ -519,6 +541,8 @@ class PDEObjective(LazyObjective):
         return self._forward_batch(xs)
 
     def _rows_swept(self, rows: int) -> int:
+        if self._engine is None and self._dense_kernel():
+            return rows  # the kernel computes exactly the rows passed
         return rows + (-rows % ROWS)  # every product runs on chunks of ROWS rows
 
     def _sweep_steps(self, rows: int) -> int:

@@ -51,6 +51,10 @@ model's sparse sweeps, by kernel.
 The fishing sweep kernels (``csrc/ode_lvm.cu``, :func:`lvm_sweep_section`):
 device µs and ms per call at 1, 32 and 288 rows of ``LVMObj(nt=1024)``,
 against the plain PyTorch sweeps; ``--lvm-only`` runs just that section.
+The dense heat sweep kernel (``csrc/pde_dense.cu``,
+:func:`pde_sweep_section`): device µs and ms per call at 1, 8, 16 and 64
+rows of ``HeatObj(nt=500)``, against the library's sweep (``library_ms``);
+``--pde-only`` runs just that section.
 
 It also samples the SM clock (``nvidia-smi --query-gpu=clocks.sm``) while
 ``dp_build`` runs back to back for a second at each shape: a kernel that
@@ -431,6 +435,62 @@ def lvm_sweep_section(nt: int = 1024) -> list:
                               "adjoint": adj_bytes / 3.35e12 * 1e6},
         })
     return rows_out
+
+
+PDE_ROWS = (1, 8, 16, 64)  # a host-loop sweep, heat.device's wave, one full group, heat.multistart8's wave
+FP64_FMA_PER_S = 33.5e12 / 2  # the H100 SXM's float64 peak outside the tensor cores, in FMA
+
+
+def pde_sweep_section(nt: int = 500) -> list:
+    """The dense heat sweep (``csrc/pde_dense.cu``) at ``HeatObj(nt)`` in
+    float64 (N = 545) for 1, 8, 16 and 64 rows, forward (rows · S⁻ᵀ from
+    state0) and reverse (rows · S⁻¹ from 0): the kernel's device µs a call
+    and a step (a profiler trace), the ms of a call with its host side (CUDA
+    events), the host µs to issue one, and beside them the plain sweep
+    (``PDEObjective._sweep``: one ``torch.matmul`` of 16 rows a chunk and
+    step, cuBLAS) as ``library_ms``; the iterates to 1e-13 of the plain
+    sweep's; the rows a group takes; and the bound of a step, R·N² FMA at
+    the float64 peak (9.5 MFLOP a step at 16 rows) with op's 2.38 MB read
+    once a call."""
+    from .models import HeatObj
+    from .objectives.pde import _pad_rows
+    from .ops import pde_cuda
+    from .utils.init import rand_func
+
+    obj = HeatObj(nt=nt, device="cuda")
+    N = obj.Nglobal_dofs
+    X = torch.as_tensor(np.stack([rand_func(obj, seed=s) for s in range(max(PDE_ROWS))]),
+                        dtype=obj.dtype, device="cuda")
+    drive = obj._drive(X.transpose(0, 1)).contiguous()
+    out = []
+    for rows in PDE_ROWS:
+        dd = drive[:, :rows].contiguous()
+        for name, v_end, op, rev in (("forward", obj.state0, obj._SinvT, False),
+                                     ("reverse", None, obj.Sinv, True)):
+            def kernel():
+                return pde_cuda.dense_sweep(v_end, dd, op, rev)
+
+            def library():
+                return obj._sweep(0.0 if v_end is None else v_end, _pad_rows(dd), op, rev)
+
+            plain = library()[:, :rows]
+            err = float((kernel() - plain).abs().max() / plain.abs().max())
+            if err > 1e-13:
+                raise RuntimeError(f"dense sweep at {rows} rows: rel err {err} > 1e-13")
+            call_ms = _events_ms(kernel)
+            host_us = _host_us(kernel, n=50)
+            library_ms = _events_ms(library, reps=3)
+            dev_ms = device_ms(kernel, "pde_dense_kernel", reps=10)
+            out.append({
+                "rows": rows, "direction": name, "nt": nt, "N": N,
+                "group_rows": pde_cuda.group_rows(rows, N, obj.dtype, obj.device),
+                "max_rel_err": err, "ms_per_call": call_ms, "host_us": host_us,
+                "library_ms": library_ms,
+                "device_us": None if dev_ms is None else 1e3 * dev_ms,
+                "device_us_per_step": None if dev_ms is None else 1e3 * dev_ms / nt,
+                "bound_us_per_step": rows * N * N / FP64_FMA_PER_S * 1e6,
+                "op_bytes": 8 * N * N})
+    return out
 
 
 def device_ms(fn, kernel: str, reps: int = 20):
@@ -822,6 +882,8 @@ def main(argv=None) -> int:
                     help="only the large-mesh heat solve: its kernels and its sweep step")
     ap.add_argument("--lvm-only", action="store_true",
                     help="only the fishing sweep kernels (csrc/ode_lvm.cu)")
+    ap.add_argument("--pde-only", action="store_true",
+                    help="only the dense heat sweep kernel (csrc/pde_dense.cu)")
     args = ap.parse_args(argv)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -830,6 +892,9 @@ def main(argv=None) -> int:
     _kernels.build_all(_kernels.SOURCES + _kernels.PROBES)
     if args.lvm_only:
         print(json.dumps({"lvm_sweeps": lvm_sweep_section(), "nvidia_smi": smi}), flush=True)
+        return 0
+    if args.pde_only:
+        print(json.dumps({"pde_sweeps": pde_sweep_section(), "nvidia_smi": smi}), flush=True)
         return 0
     if args.heat_only:
         print(json.dumps({"heat_solve": heat_solve_section(), "nvidia_smi": smi}), flush=True)
@@ -851,6 +916,7 @@ def main(argv=None) -> int:
     print(json.dumps({"phase_costs": phase_costs(), "nvidia_smi": smi}), flush=True)
     print(json.dumps({"heat_solve": heat_solve_section(), "nvidia_smi": smi}), flush=True)
     print(json.dumps({"lvm_sweeps": lvm_sweep_section(), "nvidia_smi": smi}), flush=True)
+    print(json.dumps({"pde_sweeps": pde_sweep_section(), "nvidia_smi": smi}), flush=True)
     bodies = {name: _body_variant(name) for name in BODY_VARIANTS}
     for name, nt, B, spec, preset in SHAPES:
         stage, btilde, jump, smax = _tables(nt, B, spec, preset, torch.float64)
