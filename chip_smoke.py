@@ -1567,7 +1567,7 @@ def pde_sweep_phase(torch) -> dict:
     (2·R·N² operations a step at the float64 peak)."""
     from mioc_tpu_torch.models import HeatObj
     from mioc_tpu_torch.objectives.pde import _pad_rows
-    from mioc_tpu_torch.ops import pde_cuda
+    from mioc_tpu_torch.ops import _kernels, pde_cuda
     from mioc_tpu_torch.utils.init import rand_func
 
     obj = HeatObj(nt=HEAT_NT)
@@ -1576,7 +1576,8 @@ def pde_sweep_phase(torch) -> dict:
                         dtype=obj.dtype, device=obj.device)
     drive = obj._drive(X.transpose(0, 1)).contiguous()
     out = {"phase": "pde_sweep", "nt": HEAT_NT, "N": N, "dtype": "float64",
-           "clusters_held": pde_cuda._clusters(torch.cuda.current_device(), N, 8),
+           "clusters_held": _kernels.clusters_held(torch.cuda.current_device(), pde_cuda._QUERY,
+                                                   N, 8, pde_cuda.MAX_ROWS),
            "by_rows": {}}
     for R in PDE_SWEEP_ROWS:
         dd = drive[:, :R].contiguous()
@@ -3036,7 +3037,8 @@ def main(heat: bool = False) -> int:
              "multistart_speculative": (spec_wall, spec_launches, spec_sweeps)}
     for name, (wall, launches, counts) in paths.items():
         # the sweep kernels are in the sweeps' estimate
-        k_s = sum(n * kernel_ms[k] for k, n in launches.items() if k not in SWEEP_KERNELS) / 1e3
+        k_s = sum(n * kernel_ms[k] for k, n in launches.items()
+                  if k not in (*SWEEP_KERNELS, PDE_SWEEP_KERNEL)) / 1e3
         sweep_s = sum(n * sweeps[kind][S] for kind in ("f", "df")
                       for S, n in counts[kind].items()) / 1e3
         emit({"phase": "where_the_time_goes", "path": name, "wall_s": wall,

@@ -1,4 +1,4 @@
-"""Build and load the port's CUDA kernels (``mioc_tpu_torch/csrc/*.cu``).
+"""Build, load, bind and launch the port's CUDA kernels (``mioc_tpu_torch/csrc/*.cu``).
 
 Each source is compiled by ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, loaded with ``ctypes``.  Builds happen at
@@ -7,11 +7,25 @@ keyed by a hash of the source, the shared headers and the flags, so a
 changed source rebuilds and an unchanged one loads at once.
 :func:`build_all` starts one ``nvcc`` per source, all together, and waits
 for them.  A missing ``nvcc`` or a failed build raises; nothing falls back.
+
+This module is the one that knows how a kernel is called.  The wrappers
+(``bellman_cuda``, ``backtrack_cuda``, ``ode_cuda``, ``pde_cuda``) keep their
+plans, shape rules and the argument order of their C entries, named as
+``(library, symbol, argument types)`` with the types :data:`P`, :data:`I`,
+:data:`LL`, :data:`D`, and call:
+
+* :func:`check` on every tensor argument, :func:`suffix` for the storage
+  type of an entry with one instance per type;
+* :func:`launch` for every launch: the current stream, a device switch only
+  where needed, the error, the wrapper's ``launches`` count;
+* :func:`clusters_held` for every ``cudaOccupancyMaxActiveClusters`` query,
+  with :func:`device_index` naming the card.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -19,7 +33,11 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["SOURCES", "PROBES", "NVCC_FLAGS", "build_all", "build_log", "library"]
+import torch
+
+__all__ = ["SOURCES", "PROBES", "NVCC_FLAGS", "build_all", "build_log", "library", "entry",
+           "launch", "clusters_held", "device_index", "check", "suffix", "SUFFIX",
+           "P", "I", "LL", "D"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
@@ -32,6 +50,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+# The C entries' argument types: pointers (the stream last), int, long long, double.
+P, I, LL, D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
+# The symbol suffix of the entries that have one instance per storage type.
+SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 
 _loaded: dict = {}
 
@@ -111,3 +134,88 @@ def build_log(name: str) -> str:
     the last build of ``name`` in this checkout, or '' if none."""
     path = BUILD_DIR / f"{name}.log"
     return path.read_text() if path.exists() else ""
+
+
+@functools.lru_cache(maxsize=None)
+def entry(lib_name: str, symbol: str, argtypes: tuple):
+    """The C entry point ``symbol`` of ``csrc/<lib_name>.cu``, typed once with
+    ``argtypes`` and a ``c_int`` result, a cudaError_t value (the chases
+    launch thousands of times in one solve)."""
+    fn = getattr(library(lib_name), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def launch(wrapper, name: str, spec: tuple, device: torch.device, *args) -> None:
+    """Launch the C entry ``spec = (library, symbol, argument types)`` with
+    ``args`` and the current stream of the card ``device``, made the current
+    device only where it is not already (the switch costs the host more than
+    the launch).  A non-zero cudaError_t raises ``RuntimeError("<name> launch
+    failed: CUDA error <n>")``; a launch advances ``wrapper.launches``.
+
+    ``wrapper`` is the wrapper as its module names it at the call, so that
+    a tracer that replaced the module's attribute counts the launch."""
+    fn = entry(*spec)
+    if device.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    wrapper.launches += 1
+
+
+@functools.lru_cache(maxsize=1024)
+def clusters_held(index: int, spec: tuple, *args) -> int:
+    """How many clusters of one launch configuration the card ``index`` holds
+    at once (0: it schedules none): the C entry ``spec = (library, symbol,
+    argument types)``, a ``cudaOccupancyMaxActiveClusters`` query, called
+    with ``args`` and the count's pointer.  Raises ``RuntimeError`` on a CUDA
+    error; what a count means is the caller's rule."""
+    count = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        err = entry(*spec)(*args, ctypes.byref(count))
+    if err != 0:
+        raise RuntimeError(f"{spec[1]}: the cluster query failed: CUDA error {err}")
+    return count.value
+
+
+def device_index(device=None) -> int:
+    """The index of the card ``device`` names (an int, a string or a
+    ``torch.device``), or of the current card where it names none."""
+    if isinstance(device, int):
+        return device
+    index = None if device is None else torch.device(device).index
+    return torch.cuda.current_device() if index is None else index
+
+
+def check(name: str, t: torch.Tensor, dtype, shape: tuple = None, device=None,
+          contiguous: bool = True, kernels: str = "the kernels") -> None:
+    """Check the kernel argument ``t`` called ``name``: on the card ``device``,
+    or on any CUDA device where that is None (``kernels`` names them in the
+    error); of ``dtype``, one or a tuple; of ``shape`` where given;
+    contiguous where asked.  Raises ``ValueError`` for the device, the shape
+    and the layout, ``TypeError`` for the dtype."""
+    if device is None:
+        if t.device.type != "cuda":
+            raise ValueError(f"{kernels} take CUDA tensors, got {name} on {t.device}")
+    elif t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    dtypes = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in dtypes:
+        want = " or ".join(str(d).removeprefix("torch.") for d in dtypes)
+        raise TypeError(f"{name} must be {want}, got {t.dtype}")
+    if shape is not None and t.shape != shape:
+        raise ValueError(f"shapes: {name} {tuple(t.shape)}, expected {tuple(shape)}")
+    if contiguous and not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def suffix(t: torch.Tensor, kernels: str) -> str:
+    """The symbol suffix (:data:`SUFFIX`) of the instance of ``kernels`` for
+    ``t``'s storage type; ``TypeError`` where they have none."""
+    if t.dtype not in SUFFIX:
+        raise TypeError(f"{kernels} take float64 or float32, got {t.dtype}")
+    return SUFFIX[t.dtype]

@@ -16,8 +16,9 @@
 
 The source notes say what bounds each kernel and what its design does about
 it.  Each wrapper takes CUDA tensors only: it checks device, dtype, shape and
-layout, allocates the output with ``torch.empty``, launches on the current
-stream and raises if the launch failed.  None falls back to the plain
+layout, allocates the output with ``torch.empty`` and launches through
+:mod:`._kernels`, which takes the current stream and raises if the launch
+failed.  None falls back to the plain
 versions (``bellman.backtrack_plain`` and its batched forms).  A cap may be a
 Python int or an int32 tensor on the card, which the kernel reads from device
 memory, so the device TRM never reads a budget back to the host.  The level
@@ -27,11 +28,13 @@ kernel's one-hot ``_levels_at`` worked around a TPU gather).
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import NamedTuple
 
 import torch
+
+from . import _kernels
+from ._kernels import LL, I, P
 
 __all__ = ["chase", "chase_plan", "ChasePlan", "chase_vec", "vec_plan", "VecPlan",
            "cluster_plan", "chase_batched", "table_sets", "chase_trials", "MAX_TRIALS"]
@@ -43,49 +46,30 @@ CHASE_SMEM_BYTES = 200 * 1024  # dynamic shared memory of one staged chunk
 VEC_CLUSTERS = (16, 8)  # cluster sizes chase_vec takes, the first that fits
 VEC_SUBCHUNK_STEPS = 16  # steps per sub-chunk chase_vec aims at where the table fits
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# The C entry points' argument types (csrc/*.cu), the stream last.
-_CHASE_ARGS = (_P,) * 6 + (_I,) * 9 + (_P,)
-_VEC_ARGS = (_P,) * 6 + (_I,) * 13 + (_P,)
-_VEC_CLUSTERS_ARGS = (_I,) * 10 + (_P,)
-_BATCHED_ARGS = (_P,) * 6 + (_I,) * 8 + (_LL,) * 3 + (_I,) * 2 + (_P,)
-_TRIALS_ARGS = (_P,) * 6 + (_I,) * 10 + (_P,)
+# The C entries (csrc/*.cu): library, symbol, argument types (the stream or the
+# count's pointer last).
+_CHASE = ("chase", "mioc_chase", (P,) * 6 + (I,) * 9 + (P,))
+_VEC = ("chase_vec", "mioc_chase_vec", (P,) * 6 + (I,) * 13 + (P,))
+_VEC_QUERY = ("chase_vec", "mioc_chase_vec_clusters", (I,) * 10 + (P,))
+_BATCHED = ("chase_batched", "mioc_chase_batched",
+            (P,) * 6 + (I,) * 8 + (LL,) * 3 + (I,) * 2 + (P,))
+_TRIALS = ("chase_trials", "mioc_chase_trials", (P,) * 6 + (I,) * 10 + (P,))
+_KERNELS = "the chase kernels"
 
 
-@functools.lru_cache(maxsize=None)
-def _fn(lib_name: str, symbol: str, argtypes: tuple):
-    """The C entry point, typed once (the chases launch thousands of times
-    in one solve)."""
-    from ._kernels import library
-
-    fn = getattr(library(lib_name), symbol)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _check_tables(U, phi0, btilde, batched: bool):
-    """Types, devices and shapes of one table set (``batched=False``) or of
-    S table sets; returns ``(nt, L, B)``."""
-    if phi0.device.type != "cuda":
-        raise ValueError(f"the chase kernels take CUDA tensors, got {phi0.device}")
-    if phi0.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"phi0 must be float32 or float64, got {phi0.dtype}")
-    if U.dtype not in (torch.int8, torch.int32):
-        raise TypeError(f"U must be int8 or int32, got {U.dtype}")
-    if btilde.dtype != torch.int32:
-        raise TypeError(f"btilde must be int32, got {btilde.dtype}")
+def _check_tables(U, phi0, btilde, batched: bool, contiguous: bool = True):
+    """Types, devices, shapes and, where asked, contiguity of one table set
+    (``batched=False``) or of S table sets; returns ``(nt, L, B)``."""
+    _kernels.check("phi0", phi0, (torch.float32, torch.float64), contiguous=contiguous,
+                   kernels=_KERNELS)
     lead = phi0.shape[:1] if batched else ()
     if phi0.dim() != len(lead) + 2:
         raise ValueError(f"shapes: phi0 {tuple(phi0.shape)}")
     L, B1 = phi0.shape[-2:]
     nt = btilde.shape[-2]
-    if U.shape != (*lead, nt - 1, L, B1) or btilde.shape != (*lead, nt, L):
-        raise ValueError(f"shapes: U {tuple(U.shape)}, phi0 {tuple(phi0.shape)}, "
-                         f"btilde {tuple(btilde.shape)}")
-    for name, t in (("U", U), ("btilde", btilde)):
-        if t.device != phi0.device:
-            raise ValueError(f"{name} is on {t.device}, phi0 on {phi0.device}")
+    _kernels.check("U", U, (torch.int8, torch.int32), (*lead, nt - 1, L, B1), phi0.device,
+                   contiguous)
+    _kernels.check("btilde", btilde, torch.int32, (*lead, nt, L), phi0.device, contiguous)
     return nt, L, B1 - 1
 
 
@@ -98,23 +82,10 @@ def _caps(B, shape, device) -> torch.Tensor:
     return torch.as_tensor(B, dtype=torch.int32, device=device).expand(shape).contiguous()
 
 
-def _launch(fn, device, *args) -> int:
-    """Call the C entry point ``fn`` with ``args`` and the current stream of
-    ``device``, made the current device only where it is not already (the
-    switch costs the host more than the launch); returns its cudaError_t."""
-    if device.index is None or device.index == torch.cuda.current_device():
-        return fn(*args, torch.cuda.current_stream().cuda_stream)
-    with torch.cuda.device(device):
-        return fn(*args, torch.cuda.current_stream().cuda_stream)
-
-
 def _single(U, phi0, btilde, B_new):
     """Checks of one start's tables and its cap; returns ``(nt, L, B, cap
     tensor on the card or None, cap int)``."""
     nt, L, B = _check_tables(U, phi0, btilde, batched=False)
-    for name, t in (("U", U), ("phi0", phi0), ("btilde", btilde)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
     if isinstance(B_new, torch.Tensor):
         return nt, L, B, _caps(B_new, (), phi0.device), 0
     return nt, L, B, None, int(B_new)
@@ -178,14 +149,10 @@ def chase(U, phi0, btilde, B_new):
     plan = chase_plan(nt, L, B, U.element_size())
     out = torch.empty(nt, dtype=torch.int32, device=phi0.device)
     scratch = torch.empty(plan.scratch, dtype=torch.int32, device=phi0.device)
-    fn = _fn("chase", "mioc_chase", _CHASE_ARGS)
-    err = _launch(fn, phi0.device, phi0.data_ptr(), btilde.data_ptr(), U.data_ptr(),
-                  None if B_dev is None else B_dev.data_ptr(), out.data_ptr(),
-                  scratch.data_ptr(), nt, L, B, B_int, plan.T, plan.C, int(plan.staged),
-                  phi0.element_size(), U.element_size())
-    if err != 0:
-        raise RuntimeError(f"chase launch failed: CUDA error {err}")
-    chase.launches += 1
+    _kernels.launch(chase, "chase", _CHASE, phi0.device, phi0.data_ptr(), btilde.data_ptr(),
+                    U.data_ptr(), None if B_dev is None else B_dev.data_ptr(), out.data_ptr(),
+                    scratch.data_ptr(), nt, L, B, B_int, plan.T, plan.C, int(plan.staged),
+                    phi0.element_size(), U.element_size())
     return out
 
 
@@ -262,22 +229,17 @@ def vec_plan(nt: int, L: int, B: int, u_bytes: int, cluster: int,
 
 
 @functools.lru_cache(maxsize=256)
-def _cluster_plan(nt: int, L: int, B: int, u_bytes: int, dtype_bytes: int, device: int,
+def _cluster_plan(nt: int, L: int, B: int, u_bytes: int, dtype_bytes: int, index: int,
                   clusters: tuple, subchunk_steps: int) -> VecPlan:
     """The plan of the first cluster size in ``clusters`` whose clusters the
     card can hold at that plan's shared memory
     (``cudaOccupancyMaxActiveClusters``); raises if none fits."""
-    fn = _fn("chase_vec", "mioc_chase_vec_clusters", _VEC_CLUSTERS_ARGS)
     tried = []
     for N in clusters:
         plan = vec_plan(nt, L, B, u_bytes, N, subchunk_steps)
-        count = ctypes.c_int(0)
-        with torch.cuda.device(device):
-            err = fn(L, B, N, plan.Q, plan.Ts, plan.W, int(plan.staged),
-                     int(plan.maps_in_smem), dtype_bytes, u_bytes, ctypes.byref(count))
-        if err != 0:
-            raise RuntimeError(f"chase_vec: the cluster query failed: CUDA error {err}")
-        if count.value > 0:
+        if _kernels.clusters_held(index, _VEC_QUERY, L, B, N, plan.Q, plan.Ts, plan.W,
+                                  int(plan.staged), int(plan.maps_in_smem), dtype_bytes,
+                                  u_bytes) > 0:
             return plan
         tried.append((N, plan.smem))
     raise RuntimeError(f"chase_vec: no cluster of (CTAs, shared bytes) {tried} fits on "
@@ -289,10 +251,8 @@ def cluster_plan(U, phi0) -> VecPlan:
     B+1)`` and ``phi0 (L, B+1)`` on their card: :func:`vec_plan` at the first
     size of :data:`VEC_CLUSTERS` that the card schedules."""
     L, B1 = phi0.shape[-2:]
-    device = phi0.device.index
     return _cluster_plan(U.shape[-3] + 1, L, B1 - 1, U.element_size(), phi0.element_size(),
-                         torch.cuda.current_device() if device is None else device,
-                         VEC_CLUSTERS, VEC_SUBCHUNK_STEPS)
+                         _kernels.device_index(phi0.device), VEC_CLUSTERS, VEC_SUBCHUNK_STEPS)
 
 
 def chase_vec(U, phi0, btilde, B_new):
@@ -303,15 +263,11 @@ def chase_vec(U, phi0, btilde, B_new):
     out = torch.empty(nt, dtype=torch.int32, device=phi0.device)
     maps = (torch.empty(plan.scratch, dtype=torch.int32, device=phi0.device)
             if plan.scratch else None)
-    fn = _fn("chase_vec", "mioc_chase_vec", _VEC_ARGS)
-    err = _launch(fn, phi0.device, phi0.data_ptr(), btilde.data_ptr(), U.data_ptr(),
-                  None if B_dev is None else B_dev.data_ptr(), out.data_ptr(),
-                  None if maps is None else maps.data_ptr(), nt, L, B, B_int, plan.N,
-                  plan.Q, plan.Ts, plan.W, plan.Tw, int(plan.staged),
-                  int(plan.maps_in_smem), phi0.element_size(), U.element_size())
-    if err != 0:
-        raise RuntimeError(f"chase_vec launch failed: CUDA error {err}")
-    chase_vec.launches += 1
+    _kernels.launch(chase_vec, "chase_vec", _VEC, phi0.device, phi0.data_ptr(),
+                    btilde.data_ptr(), U.data_ptr(), None if B_dev is None else B_dev.data_ptr(),
+                    out.data_ptr(), None if maps is None else maps.data_ptr(), nt, L, B, B_int,
+                    plan.N, plan.Q, plan.Ts, plan.W, plan.Tw, int(plan.staged),
+                    int(plan.maps_in_smem), phi0.element_size(), U.element_size())
     return out
 
 
@@ -356,21 +312,17 @@ def chase_batched(U, phi0, btilde, B_new):
     stride 0 the kernel builds the state maps of that one set once for every
     start; otherwise each start has its own.  Returns ``level_idx (S, nt)``
     int32 on the card."""
-    nt, L, B = _check_tables(U, phi0, btilde, batched=True)
+    nt, L, B = _check_tables(U, phi0, btilde, batched=True, contiguous=False)
     S = phi0.shape[0]
     sp, sb, su, G = table_sets(U, phi0, btilde)
     plan = chase_plan(nt, L, B, U.element_size(), sets=G, rows=S)
     caps = _caps(B_new, (S,), phi0.device)
     out = torch.empty((S, nt), dtype=torch.int32, device=phi0.device)
     scratch = torch.empty(plan.scratch, dtype=torch.int32, device=phi0.device)
-    fn = _fn("chase_batched", "mioc_chase_batched", _BATCHED_ARGS)
-    err = _launch(fn, phi0.device, phi0.data_ptr(), btilde.data_ptr(), U.data_ptr(),
-                  caps.data_ptr(), out.data_ptr(), scratch.data_ptr(), S, G, nt, L, B,
-                  plan.T, plan.C, int(plan.staged), sp, sb, su, phi0.element_size(),
-                  U.element_size())
-    if err != 0:
-        raise RuntimeError(f"chase_batched launch failed: CUDA error {err}")
-    chase_batched.launches += 1
+    _kernels.launch(chase_batched, "chase_batched", _BATCHED, phi0.device, phi0.data_ptr(),
+                    btilde.data_ptr(), U.data_ptr(), caps.data_ptr(), out.data_ptr(),
+                    scratch.data_ptr(), S, G, nt, L, B, plan.T, plan.C, int(plan.staged), sp,
+                    sb, su, phi0.element_size(), U.element_size())
     return out
 
 
@@ -385,9 +337,6 @@ def chase_trials(U, phi0, btilde, B_trials):
     Returns ``level_idx (S, Kt, nt)`` int32 on the card; row ``(s, t)`` is
     :func:`chase` of start ``s`` at ``B_trials[s, t]``."""
     nt, L, B = _check_tables(U, phi0, btilde, batched=True)
-    for name, t in (("U", U), ("phi0", phi0), ("btilde", btilde)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
     S = phi0.shape[0]
     caps = torch.as_tensor(B_trials, dtype=torch.int32, device=phi0.device)
     if caps.dim() != 2 or caps.shape[0] != S:
@@ -400,13 +349,10 @@ def chase_trials(U, phi0, btilde, B_trials):
     plan = chase_plan(nt, L, B, U.element_size(), sets=S, rows=S * Kt)
     out = torch.empty((S, Kt, nt), dtype=torch.int32, device=phi0.device)
     scratch = torch.empty(plan.scratch, dtype=torch.int32, device=phi0.device)
-    fn = _fn("chase_trials", "mioc_chase_trials", _TRIALS_ARGS)
-    err = _launch(fn, phi0.device, phi0.data_ptr(), btilde.data_ptr(), U.data_ptr(),
-                  caps.data_ptr(), out.data_ptr(), scratch.data_ptr(), S, Kt, nt, L, B,
-                  plan.T, plan.C, int(plan.staged), phi0.element_size(), U.element_size())
-    if err != 0:
-        raise RuntimeError(f"chase_trials launch failed: CUDA error {err}")
-    chase_trials.launches += 1
+    _kernels.launch(chase_trials, "chase_trials", _TRIALS, phi0.device, phi0.data_ptr(),
+                    btilde.data_ptr(), U.data_ptr(), caps.data_ptr(), out.data_ptr(),
+                    scratch.data_ptr(), S, Kt, nt, L, B, plan.T, plan.C, int(plan.staged),
+                    phi0.element_size(), U.element_size())
     return out
 
 

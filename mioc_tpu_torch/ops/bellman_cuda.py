@@ -10,19 +10,21 @@
 Both launch the kernel body of ``csrc/dp_build.cuh``, whose note says what
 bounds it and what its design does about it.  Each wrapper takes CUDA
 tensors only: it checks device, dtype, shape and contiguity, allocates the
-outputs with ``torch.empty``, launches on the current stream and raises if
-the launch failed.  Neither falls back to the plain versions
-(``bellman.build_tables_plain``, ``bellman.build_tables_batched_plain``).
+outputs with ``torch.empty`` and launches through :mod:`._kernels`, which
+takes the current stream and raises if the launch failed.  Neither falls
+back to the plain versions (``bellman.build_tables_plain``,
+``bellman.build_tables_batched_plain``).
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import NamedTuple
 
 import torch
 
+from . import _kernels
+from ._kernels import I, P
 from .bellman import u_dtype
 
 __all__ = ["dp_build", "dp_build_batched", "build_plan", "smem_bytes", "BuildPlan",
@@ -36,6 +38,13 @@ TPL_ALIGN = 16  # float64 planes beyond one block: tpl a multiple of a half-warp
 MAX_CLUSTER = 16  # CTAs of one cluster (above 8 a non-portable size)
 SMS = 132  # streaming multiprocessors of one H100 SXM
 CLUSTER_MIN_RELAX = 32768  # relaxations L·L·(B+1) of a step that take a cluster
+
+# The C entries (csrc/*.cu): library, symbol, argument types (the stream or the
+# count's pointer last).
+_BUILD = ("dp_build", "mioc_dp_build", (P,) * 5 + (I,) * 10 + (P,))
+_BATCHED = ("dp_build_batched", "mioc_dp_build_batched", (P,) * 5 + (I,) * 13 + (P,))
+_BATCHED_QUERY = ("dp_build_batched", "mioc_dp_build_batched_clusters", (I,) * 13 + (P,))
+_KERNELS = "the DP build kernels"
 
 
 class BuildPlan(NamedTuple):
@@ -53,18 +62,6 @@ class BuildPlan(NamedTuple):
     K: int
     threads: int
     smem: int
-
-
-@functools.lru_cache(maxsize=None)
-def _fn(lib_name: str, symbol: str, n_int: int, n_ptr: int = 5):
-    """The C entry point: ``n_ptr`` pointers, ``n_int`` ints, then the
-    stream, or the count's pointer (typed once)."""
-    from ._kernels import library
-
-    fn = getattr(library(lib_name), symbol)
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def _ring_chunks(nt: int, R: int) -> int:
@@ -216,25 +213,12 @@ def batched_build_plan(S: int, nt: int, L: int, B: int, itemsize: int, smax: int
 
 def _check(stage, btilde, jump_cost, B: int, lead: tuple):
     """Checks common to both builds; returns ``(nt, L)``."""
-    if stage.device.type != "cuda":
-        raise ValueError(f"the DP build kernels take CUDA tensors, got {stage.device}")
+    _kernels.check("stage", stage, (torch.float32, torch.float64), kernels=_KERNELS)
     if stage.dim() != len(lead) + 2:
         raise ValueError(f"shapes: stage {tuple(stage.shape)}")
     nt, L = stage.shape[-2:]
-    if stage.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"stage must be float32 or float64, got {stage.dtype}")
-    if jump_cost.dtype != stage.dtype:
-        raise TypeError("jump_cost must have stage's dtype")
-    if btilde.dtype != torch.int32:
-        raise TypeError(f"btilde must be int32, got {btilde.dtype}")
-    if btilde.shape != (*lead, nt, L) or jump_cost.shape != (L, L):
-        raise ValueError(f"shapes: stage {tuple(stage.shape)}, btilde "
-                         f"{tuple(btilde.shape)}, jump {tuple(jump_cost.shape)}")
-    for name, t in (("stage", stage), ("btilde", btilde), ("jump", jump_cost)):
-        if t.device != stage.device:
-            raise ValueError(f"{name} is on {t.device}, stage on {stage.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _kernels.check("btilde", btilde, torch.int32, (*lead, nt, L), stage.device)
+    _kernels.check("jump", jump_cost, stage.dtype, (L, L), stage.device)
     if nt < 1 or L < 1 or B < 0:
         raise ValueError(f"need nt ≥ 1, L ≥ 1, B ≥ 0 (got {nt}, {L}, {B})")
     return nt, L
@@ -247,46 +231,26 @@ def dp_build(stage, btilde, jump_cost, B: int, smax: int):
     plan = build_plan(nt, L, B, stage.element_size())
     U = torch.empty((nt - 1, L, B + 1), dtype=u_dtype(L), device=stage.device)
     phi0 = torch.empty((L, B + 1), dtype=stage.dtype, device=stage.device)
-    with torch.cuda.device(stage.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _fn("dp_build", "mioc_dp_build", 10)(
-            stage.data_ptr(), btilde.data_ptr(), jump_cost.data_ptr(), U.data_ptr(),
-            phi0.data_ptr(), nt, L, B, min(smax, B), plan.R, int(plan.jsmem), plan.tpl,
-            plan.K, stage.element_size(), U.element_size(), stream)
-    if err != 0:
-        raise RuntimeError(f"dp_build launch failed: CUDA error {err}")
-    dp_build.launches += 1
+    _kernels.launch(dp_build, "dp_build", _BUILD, stage.device, stage.data_ptr(),
+                    btilde.data_ptr(), jump_cost.data_ptr(), U.data_ptr(), phi0.data_ptr(), nt,
+                    L, B, min(smax, B), plan.R, int(plan.jsmem), plan.tpl, plan.K,
+                    stage.element_size(), U.element_size())
     return U, phi0
 
 
 dp_build.launches = 0
 
 
-@functools.lru_cache(maxsize=1024)
-def _clusters_at_once(S, nt, L, B, itemsize, smax, C, device) -> int:
-    """How many clusters of the plan with C CTAs the card holds at once
-    (``cudaOccupancyMaxActiveClusters``; 0: it schedules none)."""
-    plan = batched_build_plan(S, nt, L, B, itemsize, smax, C)
-    fn = _fn("dp_build_batched", "mioc_dp_build_batched_clusters", 13, 0)
-    count = ctypes.c_int(0)
-    with torch.cuda.device(device):
-        err = fn(S, nt, L, B, smax, plan.R, int(plan.jsmem), plan.tpl, plan.K, plan.C,
-                 plan.H, itemsize, u_dtype(L).itemsize, ctypes.byref(count))
-    if err != 0:
-        raise RuntimeError(f"dp_build_batched: the cluster query failed: CUDA error {err}")
-    return count.value
-
-
 @functools.lru_cache(maxsize=256)
-def _cluster_build_plan(S, nt, L, B, itemsize, smax, clusters, device) -> BatchedBuildPlan:
+def _cluster_build_plan(S, nt, L, B, itemsize, smax, clusters, index) -> BatchedBuildPlan:
     plan = batched_build_plan(S, nt, L, B, itemsize, smax, clusters)
     if clusters is not None:
-        if plan.C > 1 and _clusters_at_once(S, nt, L, B, itemsize, smax, plan.C, device) < 1:
+        if plan.C > 1 and clusters_at_once(S, nt, L, B, itemsize, smax, plan.C, index) < 1:
             raise RuntimeError(f"dp_build_batched: the card schedules no cluster of "
                                f"{plan.C} CTAs with {plan.smem} shared bytes each")
         return plan
     C = plan.C
-    while C > 1 and _clusters_at_once(S, nt, L, B, itemsize, smax, C, device) < S:
+    while C > 1 and clusters_at_once(S, nt, L, B, itemsize, smax, C, index) < S:
         C -= 1
     return plan if C == plan.C else batched_build_plan(S, nt, L, B, itemsize, smax, C)
 
@@ -302,19 +266,20 @@ def cluster_build_plan(S: int, nt: int, L: int, B: int, itemsize: int, smax: int
     finish (profile_kernels on an H100 SXM at 700 W: heat scale S=8, 16 CTAs
     in two waves 4.9 ms per call, 8 CTAs in one 4.1).  A forced ``clusters`` is taken as it is, and raises
     ``RuntimeError`` where the card schedules no such cluster."""
-    dev = torch.device("cuda" if device is None else device)
-    index = torch.cuda.current_device() if dev.index is None else dev.index
     return _cluster_build_plan(S, nt, L, B, itemsize, B if smax is None else min(smax, B),
-                               clusters, index)
+                               clusters, _kernels.device_index(device))
 
 
 def clusters_at_once(S: int, nt: int, L: int, B: int, itemsize: int, smax: int,
                      clusters: int, device=None) -> int:
     """How many clusters of ``clusters`` CTAs of the batched build's plan
-    the card holds at once (for the measurement tools)."""
-    dev = torch.device("cuda" if device is None else device)
-    index = torch.cuda.current_device() if dev.index is None else dev.index
-    return _clusters_at_once(S, nt, L, B, itemsize, min(smax, B), clusters, index)
+    the card holds at once (``cudaOccupancyMaxActiveClusters``; 0: it
+    schedules none)."""
+    smax = min(smax, B)
+    plan = batched_build_plan(S, nt, L, B, itemsize, smax, clusters)
+    return _kernels.clusters_held(_kernels.device_index(device), _BATCHED_QUERY, S, nt, L,
+                                  B, smax, plan.R, int(plan.jsmem), plan.tpl, plan.K, plan.C,
+                                  plan.H, itemsize, u_dtype(L).itemsize)
 
 
 def dp_build_batched(stage, btilde, jump_cost, B: int, smax: int, clusters: int = None):
@@ -330,15 +295,10 @@ def dp_build_batched(stage, btilde, jump_cost, B: int, smax: int, clusters: int 
                               stage.device)
     U = torch.empty((S, nt - 1, L, B + 1), dtype=u_dtype(L), device=stage.device)
     phi0 = torch.empty((S, L, B + 1), dtype=stage.dtype, device=stage.device)
-    with torch.cuda.device(stage.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _fn("dp_build_batched", "mioc_dp_build_batched", 13)(
-            stage.data_ptr(), btilde.data_ptr(), jump_cost.data_ptr(), U.data_ptr(),
-            phi0.data_ptr(), S, nt, L, B, smax, plan.R, int(plan.jsmem), plan.tpl, plan.K,
-            plan.C, plan.H, stage.element_size(), U.element_size(), stream)
-    if err != 0:
-        raise RuntimeError(f"dp_build_batched launch failed: CUDA error {err}")
-    dp_build_batched.launches += 1
+    _kernels.launch(dp_build_batched, "dp_build_batched", _BATCHED, stage.device,
+                    stage.data_ptr(), btilde.data_ptr(), jump_cost.data_ptr(), U.data_ptr(),
+                    phi0.data_ptr(), S, nt, L, B, smax, plan.R, int(plan.jsmem), plan.tpl,
+                    plan.K, plan.C, plan.H, stage.element_size(), U.element_size())
     return U, phi0
 
 

@@ -14,18 +14,17 @@ the kernel the order of :func:`~mioc_tpu_torch.ops.xla_order.window_sum`,
 and :func:`rule_table` the adjoint scan's rule letters.  Each wrapper takes
 CUDA tensors of one dtype, float64 or float32, and launches that dtype's
 instance of the kernel: it checks device, dtype, shape and layout,
-allocates the outputs with ``torch.empty``, launches on the current stream,
-raises if the launch failed and counts the launch in its ``launches``
-attribute.
+allocates the outputs with ``torch.empty`` and launches through
+:mod:`._kernels`, which takes the current stream, raises if the launch
+failed and counts the launch in the wrapper's ``launches`` attribute.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from .backtrack_cuda import _fn, _launch
+from . import _kernels
+from ._kernels import D, I, P
 
 __all__ = ["lvm_forward", "lvm_adjoint", "window_plan", "rule_table", "WINDOW",
            "MAX_LEVELS", "COLUMNS"]
@@ -36,10 +35,11 @@ COLUMNS = 3  # control columns of a gradient row: the three fishing modes (kM)
 RULES = "45"  # the adjoint's rule letters (models/fishing.py::_ADJ)
 RULE_ALIGN = 16  # bytes of rule letters the adjoint kernel copies at once (kChunk)
 
-_P, _I, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-_FORWARD_ARGS = (_P,) * 4 + (_I,) * 2 + (_D,) * 5 + (_I,) * (1 + MAX_LEVELS) + (_P,)
-_ADJOINT_ARGS = (_P,) * 8 + (_I,) * 2 + (_D,) * 8 + (_P,)
-_SUFFIX = {torch.float64: "f64", torch.float32: "f32"}  # the C entries' storage types
+# The C entries' argument types (csrc/ode_lvm.cu, mioc_lvm_{forward,adjoint}_{f64,f32}),
+# the stream last.
+_FORWARD_ARGS = (P,) * 4 + (I,) * 2 + (D,) * 5 + (I,) * (1 + MAX_LEVELS) + (P,)
+_ADJOINT_ARGS = (P,) * 8 + (I,) * 2 + (D,) * 8 + (P,)
+_KERNELS = "the LVM sweep kernels"
 
 
 def window_plan(n: int) -> tuple:
@@ -85,19 +85,9 @@ def _check_rules(rules, nt, device):
 
 
 def _check(name, t, shape, dtype):
-    if t.device.type != "cuda":
-        raise ValueError(f"the LVM sweep kernels take CUDA tensors, got {name} on {t.device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
-
-
-def _dtype(A):
-    """The storage type of the sweep: ``A``'s, float64 or float32."""
-    if A.dtype not in _SUFFIX:
-        raise TypeError(f"the LVM sweep kernels take float64 or float32, got {A.dtype}")
-    return A.dtype
+    """Device, dtype and shape of one argument; the wrappers make it
+    contiguous themselves."""
+    _kernels.check(name, t, dtype, shape, contiguous=False, kernels=_KERNELS)
 
 
 def _dense(name, t):
@@ -116,7 +106,7 @@ def lvm_forward(A, state0, alpha, beta, gamma, delta, tau):
     ``ys[k, s] = y_{k+1}`` of row ``s``, as ``LVMObj._forward_batch_torch``
     does, bit for bit."""
     nt, S = A.shape[:2]
-    dtype = _dtype(A)
+    sfx, dtype = _kernels.suffix(A, _KERNELS), A.dtype
     _check("A", A, (nt, S, 2), dtype)
     _check("state0", state0, (2,), dtype)
     if nt < 1 or S < 1:
@@ -127,13 +117,11 @@ def lvm_forward(A, state0, alpha, beta, gamma, delta, tau):
     A, state0 = _dense("A", A), state0.contiguous()
     ys = torch.empty_like(A)
     f = torch.empty(S, dtype=dtype, device=A.device)
-    fn = _fn("ode_lvm", f"mioc_lvm_forward_{_SUFFIX[dtype]}", _FORWARD_ARGS)
-    err = _launch(fn, A.device, A.data_ptr(), state0.data_ptr(), ys.data_ptr(),
-                  f.data_ptr(), nt, S, alpha, -beta, -gamma, delta, tau, len(offs),
-                  *(offs + (0,) * (MAX_LEVELS - len(offs))))
-    if err != 0:
-        raise RuntimeError(f"lvm_forward launch failed: CUDA error {err}")
-    lvm_forward.launches += 1
+    _kernels.launch(lvm_forward, "lvm_forward",
+                    ("ode_lvm", f"mioc_lvm_forward_{sfx}", _FORWARD_ARGS), A.device,
+                    A.data_ptr(), state0.data_ptr(), ys.data_ptr(), f.data_ptr(), nt, S, alpha,
+                    -beta, -gamma, delta, tau, len(offs),
+                    *(offs + (0,) * (MAX_LEVELS - len(offs))))
     return f, ys
 
 
@@ -147,7 +135,7 @@ def lvm_adjoint(A, ys, rules, state0, v1, v2, alpha, beta, gamma, delta, c1, c2,
     card.  Returns ``(df (S, nt, 3), lam (S, nt, 2))`` in that dtype, as
     ``LVMObj._adjoint_batch_torch`` does, bit for bit."""
     nt, S = A.shape[:2]
-    dtype = _dtype(A)
+    sfx, dtype = _kernels.suffix(A, _KERNELS), A.dtype
     _check("A", A, (nt, S, 2), dtype)
     _check("ys", ys, (nt, S, 2), dtype)
     _check("state0", state0, (2,), dtype)
@@ -160,13 +148,11 @@ def lvm_adjoint(A, ys, rules, state0, v1, v2, alpha, beta, gamma, delta, c1, c2,
     state0, v1, v2 = state0.contiguous(), v1.contiguous(), v2.contiguous()
     lam = torch.empty((S, nt, 2), dtype=dtype, device=A.device)
     df = torch.empty((S, nt, COLUMNS), dtype=dtype, device=A.device)
-    fn = _fn("ode_lvm", f"mioc_lvm_adjoint_{_SUFFIX[dtype]}", _ADJOINT_ARGS)
-    err = _launch(fn, A.device, A.data_ptr(), ys.data_ptr(), rules.data_ptr(),
-                  state0.data_ptr(), v1.data_ptr(), v2.data_ptr(), lam.data_ptr(), df.data_ptr(), nt, S,
-                  alpha, -beta, -gamma, delta, tau, -0.5 * tau, c1, c2)
-    if err != 0:
-        raise RuntimeError(f"lvm_adjoint launch failed: CUDA error {err}")
-    lvm_adjoint.launches += 1
+    _kernels.launch(lvm_adjoint, "lvm_adjoint",
+                    ("ode_lvm", f"mioc_lvm_adjoint_{sfx}", _ADJOINT_ARGS), A.device,
+                    A.data_ptr(), ys.data_ptr(), rules.data_ptr(), state0.data_ptr(),
+                    v1.data_ptr(), v2.data_ptr(), lam.data_ptr(), df.data_ptr(), nt, S, alpha,
+                    -beta, -gamma, delta, tau, -0.5 * tau, c1, c2)
     return df, lam
 
 

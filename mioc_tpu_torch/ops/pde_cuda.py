@@ -11,19 +11,17 @@ plain version is ``PDEObjective._sweep`` (a Python loop of one add and one
 that row's single evaluation (the kernel's sums run in an order fixed by N
 alone); they differ from the plain version's by rounding.  The wrapper
 takes CUDA tensors of one dtype, float64 or float32, checks device, dtype,
-shape and layout, allocates the output with ``torch.empty``, launches on the
-current stream, raises if the launch failed and counts the launch in
-``dense_sweep.launches``.
+shape and layout, allocates the output with ``torch.empty`` and launches
+through :mod:`._kernels`, which takes the current stream, raises if the
+launch failed and counts the launch in ``dense_sweep.launches``.
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
-from .backtrack_cuda import _fn, _launch
+from . import _kernels
+from ._kernels import I, P
 
 __all__ = ["dense_sweep", "dense_fits", "group_rows", "smem_bytes", "CLUSTER", "SPAN",
            "THREADS", "MAX_ROWS", "MAX_SMEM"]
@@ -35,10 +33,12 @@ MAX_ROWS = 14  # rows of a group, at most (kMaxRows)
 MAX_SPANS = 14  # spans of a dot product, at most (kMaxSpans)
 MAX_SMEM = 232_448  # dynamic shared memory one block may take on sm_90 (227 KB)
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_SWEEP_ARGS = (_P,) * 4 + (_I,) * 5 + (_P,)
-_SUFFIX = {torch.float64: "f64", torch.float32: "f32"}  # the C entries' storage types
-_ITEMSIZE = {torch.float64: 8, torch.float32: 4}
+# The C entries (csrc/pde_dense.cu): the sweep's argument types (its symbol
+# mioc_pde_dense_sweep_{f64,f32}), the stream last; the cluster query, the
+# count's pointer last.
+_SWEEP_ARGS = (P,) * 4 + (I,) * 5 + (P,)
+_QUERY = ("pde_dense", "mioc_pde_dense_clusters", (I,) * 3 + (P,))
+_KERNELS = "the dense sweep kernels"
 
 
 def _shape(N: int):
@@ -61,46 +61,22 @@ def dense_fits(N: int, dtype: torch.dtype, device) -> bool:
     the design (at most 14 spans, a CTA's (span, column pair) pairs within
     its 256 threads, which holds to N = 560, and a group of 14 rows within a
     block's shared memory)."""
-    if torch.device(device).type != "cuda" or dtype not in _SUFFIX or N < 1:
+    if torch.device(device).type != "cuda" or dtype not in _kernels.SUFFIX or N < 1:
         return False
     CW, NS = _shape(N)
     return (NS <= MAX_SPANS and NS * CW // 2 <= THREADS and MAX_ROWS * CW // 2 <= THREADS
-            and smem_bytes(N, _ITEMSIZE[dtype], MAX_ROWS) <= MAX_SMEM)
-
-
-@functools.lru_cache(maxsize=None)
-def _clusters(device_index: int, N: int, itemsize: int) -> int:
-    """Clusters of the kernel at N (groups of MAX_ROWS rows) that the card
-    holds at once."""
-    fn = _fn("pde_dense", "mioc_pde_dense_clusters", (_I, _I, _I, ctypes.POINTER(_I)))
-    count = _I(0)
-    with torch.cuda.device(device_index):
-        err = fn(N, itemsize, MAX_ROWS, ctypes.byref(count))
-    if err != 0 or count.value < 1:
-        raise RuntimeError(f"mioc_pde_dense_clusters(N={N}): CUDA error {err}, "
-                           f"{count.value} clusters")
-    return count.value
+            and smem_bytes(N, dtype.itemsize, MAX_ROWS) <= MAX_SMEM)
 
 
 def group_rows(R: int, N: int, dtype: torch.dtype, device) -> int:
     """The rows of a group for a sweep of R rows: the fewest (at most 14)
     such that the card holds all ⌈R / rows⌉ clusters at once.  The bits do
     not depend on it."""
-    index = torch.device(device).index
-    index = torch.cuda.current_device() if index is None else index
-    held = _clusters(index, N, _ITEMSIZE[dtype])
+    held = _kernels.clusters_held(_kernels.device_index(device), _QUERY, N, dtype.itemsize,
+                                  MAX_ROWS)
+    if held < 1:
+        raise RuntimeError(f"mioc_pde_dense_clusters(N={N}): the card holds no cluster")
     return min(MAX_ROWS, -(-R // held))
-
-
-def _check(name, t, shape, dtype, device):
-    if t.device != device:
-        raise ValueError(f"{name} on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def dense_sweep(v_end, drive, op, reverse: bool):
@@ -113,27 +89,21 @@ def dense_sweep(v_end, drive, op, reverse: bool):
     bits of its single evaluation."""
     if drive.dim() != 3:
         raise ValueError(f"drive must be (nt, R, N), got {tuple(drive.shape)}")
-    if drive.dtype not in _SUFFIX:
-        raise TypeError(f"the dense sweep kernel takes float64 or float32, got {drive.dtype}")
-    if drive.device.type != "cuda":
-        raise ValueError(f"the dense sweep kernel takes CUDA tensors, got drive on "
-                         f"{drive.device}")
+    sfx = _kernels.suffix(drive, _KERNELS)
+    _kernels.check("drive", drive, drive.dtype, kernels=_KERNELS)
     nt, R, N = drive.shape
     dtype, device = drive.dtype, drive.device
     if R < 1 or not dense_fits(N, dtype, device):
         raise ValueError(f"the dense sweep kernel does not take R={R}, N={N} in {dtype}")
-    _check("drive", drive, (nt, R, N), dtype, device)
-    _check("op", op, (N, N), dtype, device)
+    _kernels.check("op", op, dtype, (N, N), device)
     if v_end is not None:
-        _check("v_end", v_end, (N,), dtype, device)
+        _kernels.check("v_end", v_end, dtype, (N,), device)
     out = torch.empty((nt + 1, R, N), dtype=dtype, device=device)
-    fn = _fn("pde_dense", f"mioc_pde_dense_sweep_{_SUFFIX[dtype]}", _SWEEP_ARGS)
-    err = _launch(fn, device, None if v_end is None else v_end.data_ptr(),
-                  drive.data_ptr() if nt else None, op.data_ptr(), out.data_ptr(), N, nt, R,
-                  group_rows(R, N, dtype, device), int(bool(reverse)))
-    if err != 0:
-        raise RuntimeError(f"dense_sweep launch failed: CUDA error {err}")
-    dense_sweep.launches += 1
+    _kernels.launch(dense_sweep, "dense_sweep",
+                    ("pde_dense", f"mioc_pde_dense_sweep_{sfx}", _SWEEP_ARGS), device,
+                    None if v_end is None else v_end.data_ptr(),
+                    drive.data_ptr() if nt else None, op.data_ptr(), out.data_ptr(), N, nt, R,
+                    group_rows(R, N, dtype, device), int(bool(reverse)))
     return out
 
 

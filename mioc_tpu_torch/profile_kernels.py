@@ -214,20 +214,21 @@ def timeline(lib, U, phi0, btilde, B) -> dict:
     maps, slice map, the cluster.sync, its chain hop posted, the barrier
     before its re-walk, end), and each CTA's start and end in µs from the
     first CTA's start (globaltimer)."""
+    from .ops import _kernels
     from .ops import backtrack_cuda as kc
 
     fn = lib.mioc_chase_vec
-    fn.argtypes = list(kc._VEC_ARGS)
+    fn.argtypes = list(kc._VEC[2])
     fn.restype = ctypes.c_int
-    real_fn = kc._fn
-    kc._fn = lambda lib_name, symbol, argtypes: (
+    real_fn = _kernels.entry
+    _kernels.entry = lambda lib_name, symbol, argtypes: (
         fn if symbol == "mioc_chase_vec" else real_fn(lib_name, symbol, argtypes))
     try:
         for _ in range(3):
             out = kc.chase_vec(U, phi0, btilde, B)
         plan = kc.cluster_plan(U, phi0)
     finally:
-        kc._fn = real_fn
+        _kernels.entry = real_fn
     o = out.cpu().tolist()
     mhz = 1980.0  # the SM clock under load (profile_kernels, sm_clock_mhz)
     starts = [o[9 + 2 * r] for r in range(plan.N)]
@@ -245,11 +246,12 @@ def phase_costs() -> dict:
     S=32 and on the fishing wave, and chase_trials at fishing S=32, Kt=9,
     each as built and without one phase's work (CHASE_VARIANTS), launched
     through the same wrappers."""
+    from .ops import _kernels
     from .ops import backtrack_cuda as kc
     from .ops import bellman as tb
 
     libs = _chase_variants()
-    real_fn = kc._fn
+    real_fn = _kernels.entry
 
     def run_with(name, call, kernel):
         if name is None:
@@ -264,11 +266,11 @@ def phase_costs() -> dict:
             f.restype = ctypes.c_int
             return f
 
-        kc._fn = fn
+        _kernels.entry = fn
         try:
             return device_ms(call, kernel)
         finally:
-            kc._fn = real_fn
+            _kernels.entry = real_fn
 
     out = {}
     for name, nt, B, spec, preset in SHAPES[:2]:
@@ -944,7 +946,7 @@ def main(argv=None) -> int:
         phi = torch.empty_like(phi_p)
         body = {}
         for vname, fn in [("base", None), *bodies.items()]:
-            fn = fn or bc._fn("dp_build", "mioc_dp_build", 10)
+            fn = fn or _kernels.entry(*bc._BUILD)
 
             def call(fn=fn):
                 err = fn(stage.data_ptr(), btilde.data_ptr(), jump.data_ptr(),
