@@ -105,7 +105,8 @@ heat paths of 7, ``heat_rows`` and ``pde_sweep``).  It builds the CUDA kernels f
    a. ``convolution --n 2048 --seed 0 --no-plot --no-log``: the JAX
       package's iterations, f and ∇f evaluations and J (rtol 1e-12; the
       constants ``CLI_REFS`` below), through one ``dp_build`` per iteration
-      and one ``chase`` per inner step (1696), no ``chase_vec``;
+      (each on one block: no ``dp_build.cluster_launches``) and one
+      ``chase`` per inner step (1696), no ``chase_vec``;
    b. the same under ``MIOC_CHASE=vec``: equal fields and accepted u (read
       from ``--checkpoint``), through 1696 ``chase_vec`` and no ``chase``;
    c. the same with ``--device-loop`` (speculative wave): the JAX package's
@@ -122,12 +123,14 @@ heat paths of 7, ``heat_rows`` and ``pde_sweep``).  It builds the CUDA kernels f
    e. the host loop through the CLI, ``heat --n 500 --seed 0 --no-plot
       --no-log --checkpoint …`` (the JAX CLI's own example): the JAX
       package's iterations, f and ∇f evaluations and J (``CLI_REFS``),
-      through one ``dp_build`` per iteration and one ``chase`` per inner
-      step and no other kernel;
+      through one ``dp_build`` per iteration, each a cluster launch
+      (``dp_build.cluster_launches``), and one ``chase`` per inner step and
+      no other kernel;
    f. the device loop ``trm_solve_device(HeatObj(nt=500), preset, seed=0)``
       (speculative, the ``"trials"`` wave chase): the iterations, inner
       steps, J and accepted u of (e), one ∇f fewer, through one ``dp_build``
-      and one ``chase_trials`` per outer iteration and no other kernel;
+      (a cluster launch) and one ``chase_trials`` per outer iteration and no
+      other kernel;
    g. ``multistart_solve_device`` over the 8 starts ``rand_func(obj,
       seed=s)``, sequential and speculative: every start equal to the JAX
       package's result (iterations and inner steps equal, J to rtol 1e-12;
@@ -370,7 +373,7 @@ def kernel_phase(torch, name, nt, B, level_spec, preset, dtype, seed):
     from mioc_tpu_torch.ops.backtrack_cuda import chase, chase_plan, chase_vec, cluster_plan
     from mioc_tpu_torch.ops.bellman import (backtrack_plain, build_tables_plain,
                                             max_budget_use, stage_tables)
-    from mioc_tpu_torch.ops.bellman_cuda import build_plan, dp_build
+    from mioc_tpu_torch.ops.bellman_cuda import cluster_build_plan, dp_build
 
     kind, V = level_spec
     adm = lv.bounded_sum_levels(V, 1, 1) if kind == "bounded" else lv.product_levels(V)
@@ -466,7 +469,7 @@ def kernel_phase(torch, name, nt, B, level_spec, preset, dtype, seed):
                      "ns_per_step": b_ms * 1e6 / steps, "plain_ms": b_plain,
                      "bound_ms": bb_ms, "bound_by": bb_by, "ops": build_ops,
                      "bytes": build_bytes,
-                     "plan": build_plan(nt, L, B, ds)._asdict()},
+                     "plan": cluster_build_plan(1, nt, L, B, ds, smax)._asdict()},
         "chase": {"equal_at": budgets, "max_abs_err": idx_err, "kernel_ms": c_ms,
                   "ns_per_step": c_ms * 1e6 / steps, "plain_ms": c_plain,
                   "bound_ms": cb_ms, "bound_by": cb_by, "ops": chase_ops,
@@ -803,6 +806,7 @@ def zero_counts(torch):
         "backtrack_batched_plain", "backtrack_trials_plain")}
     for f in kernels.values():
         f.launches = 0
+    dp_build.cluster_launches = 0
     for f in plains.values():
         f.calls = 0
 
@@ -812,6 +816,14 @@ def zero_counts(torch):
                 {n: f.calls for n, f in plains.items()})
 
     return read
+
+
+def cluster_builds() -> int:
+    """The ``dp_build`` launches that took a cluster (C > 1) since
+    :func:`zero_counts`."""
+    from mioc_tpu_torch.ops.bellman_cuda import dp_build
+
+    return dp_build.cluster_launches
 
 
 def record_sweeps() -> None:
@@ -1147,7 +1159,8 @@ def run_cli(torch, name, args, chase_variant=None) -> dict:
     require(rc == 0 and lines, f"{name}: the CLI returned {rc} and printed its JSON line")
     res = json.loads(lines[-1])
     res.update(phase="cli", path=name, argv=args, chase=chase_variant or "scalar",
-               launches=launches, plain_calls_on_card=plain_calls, wall_s_measured=wall)
+               launches=launches, cluster_builds=cluster_builds(),
+               plain_calls_on_card=plain_calls, wall_s_measured=wall)
     emit(res)
     require(not any(plain_calls.values()), f"{name}: no plain DP on the card")
     return res
@@ -1181,9 +1194,10 @@ def cli_paths(torch, tmp) -> dict:
         check_cli(r, "convolution --n 2048")
         n = r["launches"]
         require(n["dp_build"] == r["iterations"] and n[kernel] == r["f_evals"] - 1
-                and n[other] == 0,
-                f"{key}: {r['iterations']} dp_build and {r['f_evals'] - 1} {kernel} "
-                f"launches, none of {other}: {n}")
+                and n[other] == 0 and r["cluster_builds"] == 0,
+                f"{key}: {r['iterations']} dp_build (one block each) and "
+                f"{r['f_evals'] - 1} {kernel} launches, none of {other}: {n}, "
+                f"{r['cluster_builds']} cluster builds")
         with np.load(ck) as z:
             r["u"] = z["u"]
         out[key] = r
@@ -1615,11 +1629,12 @@ def heat_host_path(torch, tmp) -> dict:
     r["sweeps"] = recorded_sweeps()
     check_cli(r, f"heat --n {HEAT_NT}")
     n = r["launches"]
-    require(n["dp_build"] == r["iterations"] and n["chase"] == r["f_evals"] - 1
+    require(n["dp_build"] == r["iterations"] == r["cluster_builds"]
+            and n["chase"] == r["f_evals"] - 1
             and not any(v for k, v in n.items()
                         if k not in ("dp_build", "chase", PDE_SWEEP_KERNEL)),
-            f"heat_host: {r['iterations']} dp_build and {r['f_evals'] - 1} chase "
-            f"launches, no other DP kernel: {n}")
+            f"heat_host: {r['iterations']} dp_build (each a cluster: {r['cluster_builds']}) "
+            f"and {r['f_evals'] - 1} chase launches, no other DP kernel: {n}")
     require_dense_sweeps("heat_host", n, r["sweeps"])
     with np.load(ck) as z:
         r["u"] = z["u"]
@@ -1640,13 +1655,14 @@ def heat_device_path(torch, host) -> tuple:
     res = trm_solve_device(obj, TRMParameters(**HEAT_PRESET), seed=0)
     wall = time.perf_counter() - t0
     launches, plain_calls = read()
+    clustered = cluster_builds()
     sweeps = recorded_sweeps()
     emit({"phase": "heat_device", "problem": "heat", "nt": HEAT_NT, "N": HEAT_N,
           "dtype": "float64", "speculative": True, "wave_chase": obj._wave_chase_default,
           "J": float(res.J), "converged": bool(res.converged),
           "iterations": int(res.iterations), "inner_steps": int(res.inner_steps),
           "f_evals": int(res.f_evals), "df_evals": int(res.df_evals),
-          "dp_builds": int(res.dp_builds), "launches": launches,
+          "dp_builds": int(res.dp_builds), "launches": launches, "cluster_builds": clustered,
           "plain_calls_on_card": plain_calls, "sweeps": sweeps, "wall_s": wall})
     its = int(res.iterations)
     require(bool(res.converged), "heat device solve converged")
@@ -1661,6 +1677,7 @@ def heat_device_path(torch, host) -> tuple:
             and not any(v for k, v in launches.items()
                         if k not in ("dp_build", "chase_trials", PDE_SWEEP_KERNEL)),
             f"heat device solve: {its} dp_build and {its} chase_trials launches: {launches}")
+    require(clustered == its, f"heat device solve: every dp_build a cluster ({clustered})")
     require_dense_sweeps("heat device solve", launches, sweeps)
     require(not any(plain_calls.values()), "heat device: no plain DP on the card")
     return res, launches, wall, sweeps

@@ -1,11 +1,11 @@
 // dp_build.cuh — the Bellman DP backward sweep, one start per block or one
 // start per thread-block cluster.
 //
-// The body of both build kernels: dp_build.cu launches it for one start
-// (grid 1), dp_build_batched.cu for S starts that share one jump table
-// (grid S, block s on stage[s], btilde[s], writing U[s] and phi0[s]; or,
-// where bellman_cuda.batched_build_plan takes C > 1, grid S·C in clusters
-// of C CTAs, one cluster per start, CTA k owning the budget slice [lo_k,
+// The body of the build kernel: dp_build_batched.cu launches it for S ≥ 1
+// starts that share one jump table (grid S, block s on stage[s],
+// btilde[s], writing U[s] and phi0[s]; or, where
+// bellman_cuda.cluster_build_plan takes C > 1, grid S·C in clusters of C
+// CTAs, one cluster per start, CTA k owning the budget slice [lo_k,
 // hi_k)).  Each start computes exactly what
 // mioc_tpu_torch.ops.bellman.build_tables_plain computes for it:
 //
@@ -78,7 +78,13 @@
 // step in place of __syncthreads(); the staging warp arrives too, as before.
 // Each CTA stages every ring row (all L entries) itself, and writes U_i and
 // Φ0 for its slice.  No grid-wide barrier: clusters are independent and
-// queue past the SMs.
+// queue past the SMs.  With a slice of ~7 budgets (one start at heat scale,
+// 16 CTAs) a thread relaxes one output a step, and the step is the cluster
+// barrier and the halo pushes: ~2.0 µs against ~9.5 on one block (nt 500,
+// B 100; profile_kernels on an H100).  A slice of half the halo or less
+// pushes each output into two or more halos, one store after another: at
+// nt 200, B 40 sixteen CTAs of 3 budgets take 0.422 ms on the device
+// against 0.378 for eight of 6, still half one block's 0.866.
 //
 // NaN: the strict < ignores NaN where torch.min propagates it.  The solver
 // never builds from a non-finite gradient (non-finite trials are rejected

@@ -41,8 +41,8 @@ __all__ = ["SOURCES", "PROBES", "NVCC_FLAGS", "build_all", "build_log", "library
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("dp_build", "chase", "dp_build_batched", "chase_batched", "chase_trials",
-           "chase_vec", "ode_lvm", "pde_dense")
+SOURCES = ("chase", "dp_build_batched", "chase_batched", "chase_trials", "chase_vec",
+           "ode_lvm", "pde_dense")
 # Sources that are no kernel of any path: the empty kernel with which
 # profile_kernels.py times the host side of a launch.
 PROBES = ("launch_probe",)

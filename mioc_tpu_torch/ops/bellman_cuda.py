@@ -1,18 +1,22 @@
-"""Wrappers of the DP build CUDA kernels.
+"""Wrappers of the DP build CUDA kernel (``csrc/dp_build_batched.cu``).
 
-* :func:`dp_build` — ``csrc/dp_build.cu``, counterpart of
-  ``mioc_tpu.ops.bellman_pallas._dp_kernel``: one start, one block;
-* :func:`dp_build_batched` — ``csrc/dp_build_batched.cu``, counterpart of
-  ``_dp_kernel_batched``: S starts that share one jump table, one block per
-  start or, where :func:`batched_build_plan` takes C > 1, one thread-block
-  cluster of C CTAs per start, split along the budget axis.
+* :func:`dp_build` — counterpart of ``mioc_tpu.ops.bellman_pallas._dp_kernel``:
+  one start, the batched entry at S = 1 (a ``(nt-1, L, B+1)`` U is laid out
+  as a ``(1, nt-1, L, B+1)`` one): one block where the plan takes C = 1
+  (fishing, conv: every L ≤ 8), else one thread-block cluster of C CTAs
+  split along the budget axis (heat500: C = 16, 7 budgets a CTA), which
+  the cluster barrier and the halo pushes bound (~2 µs a step on an H100);
+* :func:`dp_build_batched` — counterpart of ``_dp_kernel_batched``: S
+  starts that share one jump table, one block per start or, where
+  :func:`batched_build_plan` takes C > 1, one cluster of C CTAs per start.
 
-Both launch the kernel body of ``csrc/dp_build.cuh``, whose note says what
-bounds it and what its design does about it.  Each wrapper takes CUDA
-tensors only: it checks device, dtype, shape and contiguity, allocates the
-outputs with ``torch.empty`` and launches through :mod:`._kernels`, which
-takes the current stream and raises if the launch failed.  Neither falls
-back to the plain versions (``bellman.build_tables_plain``,
+Both launch the kernel body of ``csrc/dp_build.cuh`` under the plan of
+:func:`cluster_build_plan`; its note says what bounds the body and what its
+design does about it.  Each wrapper takes CUDA tensors only: it checks
+device, dtype, shape and contiguity, allocates the outputs with
+``torch.empty`` and launches through :mod:`._kernels`, which takes the
+current stream and raises if the launch failed.  Neither falls back to the
+plain versions (``bellman.build_tables_plain``,
 ``bellman.build_tables_batched_plain``).
 """
 
@@ -23,6 +27,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..utils import trace
 from . import _kernels
 from ._kernels import I, P
 from .bellman import u_dtype
@@ -41,7 +46,6 @@ CLUSTER_MIN_RELAX = 32768  # relaxations L·L·(B+1) of a step that take a clust
 
 # The C entries (csrc/*.cu): library, symbol, argument types (the stream or the
 # count's pointer last).
-_BUILD = ("dp_build", "mioc_dp_build", (P,) * 5 + (I,) * 10 + (P,))
 _BATCHED = ("dp_build_batched", "mioc_dp_build_batched", (P,) * 5 + (I,) * 13 + (P,))
 _BATCHED_QUERY = ("dp_build_batched", "mioc_dp_build_batched_clusters", (I,) * 13 + (P,))
 _KERNELS = "the DP build kernels"
@@ -224,21 +228,40 @@ def _check(stage, btilde, jump_cost, B: int, lead: tuple):
     return nt, L
 
 
+def _build(wrapper, name: str, stage, btilde, jump_cost, B: int, smax: int, lead: tuple,
+           clusters: int = None):
+    """Check, plan, allocate and launch one build of ``lead`` starts (``()``:
+    one start, ``(S,)``: S); returns ``(U, phi0, C)``, C the CTAs per start
+    the launch took, which the open ``dp.build`` span records as ``ctas``."""
+    nt, L = _check(stage, btilde, jump_cost, B, lead)
+    S, smax = lead[0] if lead else 1, min(smax, B)
+    plan = cluster_build_plan(S, nt, L, B, stage.element_size(), smax, clusters, stage.device)
+    U = torch.empty((*lead, nt - 1, L, B + 1), dtype=u_dtype(L), device=stage.device)
+    phi0 = torch.empty((*lead, L, B + 1), dtype=stage.dtype, device=stage.device)
+    _kernels.launch(wrapper, name, _BATCHED, stage.device, stage.data_ptr(), btilde.data_ptr(),
+                    jump_cost.data_ptr(), U.data_ptr(), phi0.data_ptr(), S, nt, L, B, smax,
+                    plan.R, int(plan.jsmem), plan.tpl, plan.K, plan.C, plan.H,
+                    stage.element_size(), U.element_size())
+    trace.annotate(ctas=plan.C)
+    return U, phi0, plan.C
+
+
 def dp_build(stage, btilde, jump_cost, B: int, smax: int):
     """Launch the DP build; returns ``(U (nt-1, L, B+1), phi0 (L, B+1))`` with
-    ``U`` of :func:`~.bellman.u_dtype` and ``phi0`` of ``stage``'s dtype."""
-    nt, L = _check(stage, btilde, jump_cost, B, ())
-    plan = build_plan(nt, L, B, stage.element_size())
-    U = torch.empty((nt - 1, L, B + 1), dtype=u_dtype(L), device=stage.device)
-    phi0 = torch.empty((L, B + 1), dtype=stage.dtype, device=stage.device)
-    _kernels.launch(dp_build, "dp_build", _BUILD, stage.device, stage.data_ptr(),
-                    btilde.data_ptr(), jump_cost.data_ptr(), U.data_ptr(), phi0.data_ptr(), nt,
-                    L, B, min(smax, B), plan.R, int(plan.jsmem), plan.tpl, plan.K,
-                    stage.element_size(), U.element_size())
+    ``U`` of :func:`~.bellman.u_dtype` and ``phi0`` of ``stage``'s dtype.
+    One block, or one cluster of C CTAs where :func:`cluster_build_plan`
+    takes C > 1 at S = 1, bit for bit the same; a launch with C > 1 also
+    advances ``dp_build.cluster_launches``."""
+    U, phi0, C = _build(dp_build, "dp_build", stage, btilde, jump_cost, B, smax, ())
+    _SINGLE.cluster_launches += C > 1
     return U, phi0
 
 
 dp_build.launches = 0
+# Counted on the function itself: a tracer that stands in for the module's
+# attribute carries ``launches`` only.
+dp_build.cluster_launches = 0
+_SINGLE = dp_build
 
 
 @functools.lru_cache(maxsize=256)
@@ -246,7 +269,7 @@ def _cluster_build_plan(S, nt, L, B, itemsize, smax, clusters, index) -> Batched
     plan = batched_build_plan(S, nt, L, B, itemsize, smax, clusters)
     if clusters is not None:
         if plan.C > 1 and clusters_at_once(S, nt, L, B, itemsize, smax, plan.C, index) < 1:
-            raise RuntimeError(f"dp_build_batched: the card schedules no cluster of "
+            raise RuntimeError(f"the DP build: the card schedules no cluster of "
                                f"{plan.C} CTAs with {plan.smem} shared bytes each")
         return plan
     C = plan.C
@@ -257,15 +280,17 @@ def _cluster_build_plan(S, nt, L, B, itemsize, smax, clusters, index) -> Batched
 
 def cluster_build_plan(S: int, nt: int, L: int, B: int, itemsize: int, smax: int = None,
                        clusters: int = None, device=None) -> BatchedBuildPlan:
-    """The plan :func:`dp_build_batched` launches on ``device`` (default: the
-    current card): :func:`batched_build_plan`'s C lowered, one at a time, to
-    the largest C whose S clusters the card holds at once
+    """The plan :func:`dp_build_batched` (and, at S = 1, :func:`dp_build`)
+    launches on ``device`` (default: the current card):
+    :func:`batched_build_plan`'s C lowered, one at a time, to the largest C
+    whose S clusters the card holds at once
     (``cudaOccupancyMaxActiveClusters``; a 16-CTA cluster needs 16 SMs of
     one GPC), or 1 (one block per start) where none does: a start split over
     more CTAs gains nothing once its cluster has to wait for another to
     finish (profile_kernels on an H100 SXM at 700 W: heat scale S=8, 16 CTAs
-    in two waves 4.9 ms per call, 8 CTAs in one 4.1).  A forced ``clusters`` is taken as it is, and raises
-    ``RuntimeError`` where the card schedules no such cluster."""
+    in two waves 4.9 ms per call, 8 CTAs in one 4.1).  A forced ``clusters``
+    is taken as it is, and raises ``RuntimeError`` where the card schedules
+    no such cluster."""
     return _cluster_build_plan(S, nt, L, B, itemsize, B if smax is None else min(smax, B),
                                clusters, _kernels.device_index(device))
 
@@ -289,17 +314,8 @@ def dp_build_batched(stage, btilde, jump_cost, B: int, smax: int, clusters: int 
     for bit.  One block per start, or one cluster of C CTAs per start where
     :func:`cluster_build_plan` takes C > 1 (``clusters`` forces C)."""
     S = stage.shape[0] if stage.dim() == 3 else -1
-    nt, L = _check(stage, btilde, jump_cost, B, (S,))
-    smax = min(smax, B)
-    plan = cluster_build_plan(S, nt, L, B, stage.element_size(), smax, clusters,
-                              stage.device)
-    U = torch.empty((S, nt - 1, L, B + 1), dtype=u_dtype(L), device=stage.device)
-    phi0 = torch.empty((S, L, B + 1), dtype=stage.dtype, device=stage.device)
-    _kernels.launch(dp_build_batched, "dp_build_batched", _BATCHED, stage.device,
-                    stage.data_ptr(), btilde.data_ptr(), jump_cost.data_ptr(), U.data_ptr(),
-                    phi0.data_ptr(), S, nt, L, B, smax, plan.R, int(plan.jsmem), plan.tpl,
-                    plan.K, plan.C, plan.H, stage.element_size(), U.element_size())
-    return U, phi0
+    return _build(dp_build_batched, "dp_build_batched", stage, btilde, jump_cost, B, smax,
+                  (S,), clusters)[:2]
 
 
 dp_build_batched.launches = 0

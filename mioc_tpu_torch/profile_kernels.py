@@ -7,15 +7,16 @@ At the three DP shapes of ``chip_smoke.py`` (fishing, conv, heat scale), in
 float64, it prints one JSON object per line with the device time of the
 kernel alone (:func:`device_ms`, a ``torch.profiler`` trace) under:
 
-* other launch plans of ``dp_build`` (threads per block capped at 1024, 512
-  or 256; ``bellman_cuda.TPL_ALIGN`` 16 or 1), each bit-equal to the plain
-  build;
+* other one-block launch plans of one start's build (C = 1 forced; threads per
+  block capped at 1024, 512 or 256; ``bellman_cuda.TPL_ALIGN`` 16 or 1),
+  each bit-equal to the plain build;
 * other chunk counts of ``chase`` (``backtrack_cuda.CHASE_CHUNKS`` 8 … 128),
   each equal to the plain walk;
 * variants of the build body compiled from edited copies of
-  ``csrc/dp_build.cuh`` into ``mioc_tpu_torch/_build/variants/``: without the
-  U store, without the relaxation, without both, and with the step's
-  barrier replaced by a warp sync.  The variants compute wrong tables and
+  ``csrc/dp_build.cuh`` into ``mioc_tpu_torch/_build/variants/`` (the
+  batched entry, launched at S = 1 on one block): without the U store,
+  without the relaxation, without both, and with the step's barrier
+  replaced by a warp sync.  The variants compute wrong tables and
   are timed only: they show what a step costs beyond its relaxation.
 
 * the cluster chase ``chase_vec`` at cluster sizes 8 and 16
@@ -39,12 +40,17 @@ The rule of ``bellman_cuda.batched_build_plan`` is read off this sweep.
 
 At the shape a heat solve runs (``HeatObj(nt=500)`` under its preset: nt=500,
 L=36, B=100, float64; :func:`heat_solve_section`) it takes the device ms of
-``dp_build``, ``chase`` and ``chase_trials`` (one table set, the preset's K=8
-halving caps) at S=1, and of ``dp_build_batched`` (under the cluster size its
-plan takes, and at C = 1), ``chase_batched`` and ``chase_trials`` (K=8) at
-S=8, each equal to its plain version.  ``--heat-only`` runs just that section
-(about a minute).  ``--heat-large`` runs it at the large-mesh heat solve's
-shape instead (``HeatObj(nt=200)`` on 8321 dofs: nt=200, L=36, B=40), then
+``dp_build`` (under the cluster size its plan takes, printed with the plan,
+and at C = 1), ``chase`` and ``chase_trials`` (one table set, the preset's
+K=8 halving caps) at S=1, and of ``dp_build_batched`` (under the cluster
+size its plan takes, and at C = 1), ``chase_batched`` and ``chase_trials``
+(K=8) at S=8, each equal to its plain version; then
+:func:`single_build_sweep`: ``dp_build`` under every C in
+:data:`SINGLE_SIZES` at heat500, large heat (nt=200, B=40) and heat at
+nt=1024 (B=204), float64, each bit-equal to the plain build, ms per call
+and device ms.  ``--heat-only`` runs just these two (a few minutes).
+``--heat-large`` runs the first at the large-mesh heat solve's shape
+instead (``HeatObj(nt=200)`` on 8321 dofs: nt=200, L=36, B=40), then
 :func:`large_sweep_section`: the kernels and device µs of a step of that
 model's sparse sweeps, by kernel.
 
@@ -389,6 +395,62 @@ def build_sweep() -> list:
     return rows
 
 
+SINGLE_SIZES = (1, 2, 4, 8, 12, 16)  # and the size the plan takes, where another
+
+
+def _one_start(bc, stage, btilde, jump, B, smax, C):
+    """One start's build under C CTAs, forced: the batched entry at S = 1,
+    the launch ``dp_build`` makes under a plan of that C."""
+    U, phi = bc.dp_build_batched(stage[None], btilde[None], jump, B, smax, clusters=C)
+    return U[0], phi[0]
+
+
+def single_build_sweep(shapes=None, sizes=SINGLE_SIZES) -> list:
+    """One start's build (:func:`_one_start`) under each cluster size in
+    SINGLE_SIZES, forced, at heat500 (nt 500, B 100), large heat (nt 200, B 40: a halo of
+    10 wider than a 16-CTA slice of 3) and heat at nt 1024 (B 204), float64:
+    the plan, bit-equality to the plain build, ms per call (CUDA events; the
+    sizes in turns, ascending then descending, both medians kept) and then
+    device ms.  A size the card does not schedule is recorded as
+    refused.  ``shapes`` and ``sizes`` replace the shapes (as
+    :data:`HEAT_SOLVE`) and the sizes."""
+    from .ops import bellman as tb
+    from .ops import bellman_cuda as bc
+
+    rows, calls = [], []
+    for name, nt, B, spec, preset in shapes or (HEAT_SOLVE, HEAT_LARGE,
+                                                ("heat1024", *SHAPES[2][1:])):
+        tables = _tables(nt, B, spec, preset, torch.float64, seed=40)
+        stage, btilde, jump, smax = tables
+        L = stage.shape[1]
+        U_p, phi_p = tb.build_tables_plain(stage, btilde, jump, B, smax)
+        taken = bc.cluster_build_plan(1, nt, L, B, 8, smax).C
+        both = tuple(sorted(set(sizes) | {taken}))
+        res = {}
+        for C in both + both[::-1]:
+            try:
+                plan = bc.cluster_build_plan(1, nt, L, B, 8, smax, clusters=C)
+            except RuntimeError as e:  # a cluster size this card does not schedule
+                res[C] = {"refused": str(e)}
+                continue
+
+            def call(C=C, t=tables, B=B):  # bound now: device_ms runs after the loop
+                return _one_start(bc, *t[:3], B, t[3], C)
+
+            U, phi = call()
+            if not (torch.equal(U, U_p) and torch.equal(phi, phi_p)):
+                raise RuntimeError(f"{name}: one start at C={C} differs from the plain build")
+            r = res.setdefault(C, {"plan": plan._asdict(), "call_ms": []})
+            r["call_ms"].append(_events_ms(call))
+            if len(r["call_ms"]) == 1:
+                calls.append((r, call))
+        rows.append({"shape": name, "nt": nt, "L": L, "B": B, "smax": smax,
+                     "taken_C": taken, "by_C": res})
+    for r, call in calls:
+        r["device_ms"] = device_ms(call, "dp_build_kernel", reps=10)
+    return rows
+
+
 LVM_ROWS = (1, 32, 288)  # the host loop, the multistart's ∇f, its 9-trial wave
 
 
@@ -560,7 +622,7 @@ def _tables(nt, B, spec, preset, dtype, seed=0):
 
 
 def _body_variant(name: str):
-    """``mioc_dp_build`` of an edited copy of the build body."""
+    """``mioc_dp_build_batched`` of an edited copy of the build body."""
     from .ops import _kernels
 
     src = _kernels.CSRC
@@ -573,14 +635,14 @@ def _body_variant(name: str):
             raise RuntimeError(f"variant {name}: {old!r} is not in dp_build.cuh")
         text = text.replace(old, new)
     (out / "dp_build.cuh").write_text(text)
-    lib = out / "libdp_build.so"
+    lib = out / "libdp_build_batched.so"
     run = subprocess.run([_kernels._nvcc(), *_kernels.NVCC_FLAGS, "-I", str(out), "-o",
-                          str(lib), str(out / "dp_build.cu")], capture_output=True,
+                          str(lib), str(out / "dp_build_batched.cu")], capture_output=True,
                          text=True)
     if run.returncode != 0:
         raise RuntimeError(f"nvcc failed for variant {name}:\n{run.stdout}{run.stderr}")
-    fn = ctypes.CDLL(str(lib)).mioc_dp_build
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+    fn = ctypes.CDLL(str(lib)).mioc_dp_build_batched
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -789,10 +851,16 @@ def heat_solve_section(shape=HEAT_SOLVE, HEAT_CAPS=HEAT_CAPS) -> dict:
             or not torch.equal(kc.chase_trials(*one, caps1),
                                tb.backtrack_trials_plain(*one, caps1.cpu())):
         raise RuntimeError(f"{name}: a chase differs from the plain walk")
+    taken = bc.cluster_build_plan(1, nt, L, B, 8, smax)
+    U1, phi1 = _one_start(bc, stage, btilde, jump, B, smax, 1)
+    if not (torch.equal(U1, U_p) and torch.equal(phi1, phi_p)):
+        raise RuntimeError(f"{name}: dp_build at C=1 differs from the plain build")
     out["S1"] = {
-        "L": L, "build_plan": bc.build_plan(nt, L, B, 8)._asdict(),
+        "L": L, "taken_plan": taken._asdict(),
         "dp_build_ms": device_ms(lambda: bc.dp_build(stage, btilde, jump, B, smax),
                                  "dp_build_kernel"),
+        "dp_build_ms_at_C1": device_ms(
+            lambda: _one_start(bc, stage, btilde, jump, B, smax, 1), "dp_build_kernel"),
         "chase_ms": device_ms(lambda: kc.chase(U, phi0, btilde, B), "chase_kernel"),
         "chase_vec_ms": device_ms(lambda: kc.chase_vec(U, phi0, btilde, B),
                                   "chase_vec_kernel"),
@@ -899,7 +967,9 @@ def main(argv=None) -> int:
         print(json.dumps({"pde_sweeps": pde_sweep_section(), "nvidia_smi": smi}), flush=True)
         return 0
     if args.heat_only:
+        sweep = single_build_sweep()  # its per-call times before the first trace
         print(json.dumps({"heat_solve": heat_solve_section(), "nvidia_smi": smi}), flush=True)
+        print(json.dumps({"single_build_sweep": sweep, "nvidia_smi": smi}), flush=True)
         return 0
     if args.heat_large:
         print(json.dumps({"heat_large_kernels": heat_solve_section(HEAT_LARGE, HEAT_LARGE_CAPS),
@@ -909,11 +979,13 @@ def main(argv=None) -> int:
         return 0
     host = host_side()
     sweep = build_sweep()  # its per-call times before the first trace
+    single = single_build_sweep()
     probe = _kernels.library("launch_probe").mioc_launch_probe
     host["empty_device_ms"] = device_ms(
         lambda: probe(1, 32, 1024, torch.cuda.current_stream().cuda_stream), "empty_kernel")
     print(json.dumps({"host_side_us": host, "nvidia_smi": smi}), flush=True)
     print(json.dumps({"build_sweep": sweep, "nvidia_smi": smi}), flush=True)
+    print(json.dumps({"single_build_sweep": single, "nvidia_smi": smi}), flush=True)
     print(json.dumps({"batched": batched_section(), "nvidia_smi": smi}), flush=True)
     print(json.dumps({"phase_costs": phase_costs(), "nvidia_smi": smi}), flush=True)
     print(json.dumps({"heat_solve": heat_solve_section(), "nvidia_smi": smi}), flush=True)
@@ -930,28 +1002,33 @@ def main(argv=None) -> int:
         try:
             for cap, align in ((1024, 16), (1024, 1), (512, 16), (256, 16)):
                 bc.MAX_THREADS, bc.TPL_ALIGN = cap, align
-                U, phi = bc.dp_build(stage, btilde, jump, B, smax)
+                bc._cluster_build_plan.cache_clear()  # plans cached under other limits
+
+                def one_block():
+                    return _one_start(bc, stage, btilde, jump, B, smax, 1)
+
+                U, phi = one_block()
                 if not (torch.equal(U, U_p) and torch.equal(phi, phi_p)):
                     raise RuntimeError(f"{name}: dp_build under {cap}/{align} differs")
                 plan = bc.build_plan(nt, L, B, 8)
                 plans.append({"max_threads": cap, "tpl_align": align, "tpl": plan.tpl,
-                              "K": plan.K, "device_ms": device_ms(
-                                  lambda: bc.dp_build(stage, btilde, jump, B, smax),
-                                  "dp_build_kernel")})
+                              "K": plan.K,
+                              "device_ms": device_ms(one_block, "dp_build_kernel")})
         finally:
             bc.MAX_THREADS, bc.TPL_ALIGN = saved
+            bc._cluster_build_plan.cache_clear()
 
         plan = bc.build_plan(nt, L, B, 8)
         U = torch.empty_like(U_p)
         phi = torch.empty_like(phi_p)
         body = {}
         for vname, fn in [("base", None), *bodies.items()]:
-            fn = fn or _kernels.entry(*bc._BUILD)
+            fn = fn or _kernels.entry(*bc._BATCHED)
 
-            def call(fn=fn):
+            def call(fn=fn):  # one start on one block (S = 1, C = 1, H = 0)
                 err = fn(stage.data_ptr(), btilde.data_ptr(), jump.data_ptr(),
-                         U.data_ptr(), phi.data_ptr(), nt, L, B, min(smax, B), plan.R,
-                         int(plan.jsmem), plan.tpl, plan.K, 8, U.element_size(),
+                         U.data_ptr(), phi.data_ptr(), 1, nt, L, B, min(smax, B), plan.R,
+                         int(plan.jsmem), plan.tpl, plan.K, 1, 0, 8, U.element_size(),
                          torch.cuda.current_stream().cuda_stream)
                 if err != 0:
                     raise RuntimeError(f"{name} {vname}: CUDA error {err}")

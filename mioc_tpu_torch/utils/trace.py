@@ -38,8 +38,11 @@ span                      where                                         attribut
 ``trm.tv``                the device loop's ``tv_rows``/``iv_rows``
 ``<layer>.f``,            an objective's ``_forward_batch``,            ``rows``, ``rows_swept``
 ``<layer>.df``            ``_adjoint_batch``                            (padding included), ``steps``
-``dp.build``,             the DP dispatchers of ``ops/bellman.py``
-``dp.chase``
+``dp.build``              the build dispatchers of ``ops/bellman.py``   on the card ``ctas``: the CTAs
+                                                                        of a start (1: one block), set
+                                                                        by the launch
+                                                                        (``ops/bellman_cuda.py``)
+``dp.chase``              the chase dispatchers of ``ops/bellman.py``
 ========================  ============================================  ==============================
 """
 
@@ -49,7 +52,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Optional
 
-__all__ = ["Span", "enable", "disable", "enabled", "span", "take"]
+__all__ = ["Span", "enable", "disable", "enabled", "span", "annotate", "take"]
 
 
 @dataclass(slots=True)
@@ -141,6 +144,13 @@ def span(name: str, **attrs):
     if not _REC.on:
         return _OFF
     return _Open(name, attrs)
+
+
+def annotate(**attrs) -> None:
+    """Add attributes to the innermost open span, where one is recording:
+    for a count that a callee knows, such as the CTAs a build launched."""
+    if _REC.on and _REC.stack:
+        _REC.stack[-1].attrs.update(attrs)
 
 
 def take() -> list:

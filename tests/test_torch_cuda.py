@@ -86,6 +86,57 @@ def test_wrappers_route_cuda_tensors_to_kernels(cuda_device):
     assert u.device.type == "cuda" and u.shape == (50, 3)
 
 
+SINGLE_BUILDS = [
+    # name, levels, nt, B, cluster: the three cells' shapes (heat500, conv,
+    # fishing), large heat and heat at B = 30 (16 CTAs of 3 and of 2 budgets
+    # under a halo of 10) and heat at nt = 1024.
+    ("heat500", lambda: product_levels([list(range(6))] * 2), 500, 100, True),
+    ("heat200", lambda: product_levels([list(range(6))] * 2), 200, 40, True),
+    ("heat-B30", lambda: product_levels([list(range(6))] * 2), 60, 30, True),
+    ("heat1024", lambda: product_levels([list(range(6))] * 2), 1024, 204, True),
+    ("conv", lambda: product_levels([[-2, -1, 0, 1, 2]]), 2048, 128, False),
+    ("fishing", lambda: bounded_sum_levels([[0, 1]] * 3, 1, 1), 1024, 170, False),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name,levels,nt,B,cluster", SINGLE_BUILDS)
+def test_single_build_under_its_plan_bit_equal(cuda_device, name, levels, nt, B, cluster,
+                                               dtype):
+    """B1 (``dp_build``) under the plan it takes: a cluster of C > 1 CTAs at
+    heat scale, one block at the conv and fishing shapes.  U and phi0 are
+    bit-equal to the plain build and to the one-block launch (C = 1
+    forced through the batched entry at S = 1); ``dp_build.cluster_launches``
+    advances by one for a cluster launch only; the ``dp.build`` span names
+    the CTAs."""
+    from mioc_tpu_torch.ops import bellman_cuda as bc
+    from mioc_tpu_torch.utils import trace
+
+    adm = levels()
+    stage, btilde, jump, smax = _tables(adm, nt, B, dtype, cuda_device, p=2, beta=1e-3)
+    plan = bc.cluster_build_plan(1, nt, adm.L, B, stage.element_size(), smax)
+    assert (plan.C > 1) == cluster
+    if cluster:
+        assert plan.H == min(smax, B) and plan.width == -(-(B + 1) // plan.C)
+    U_p, phi_p = tb.build_tables_plain(stage, btilde, jump, B, smax)
+    n_b, n_c = bc.dp_build.launches, bc.dp_build.cluster_launches
+    trace.take()
+    trace.enable()
+    try:
+        U_k, phi_k = tb.build_tables(stage, btilde, jump, B, smax)
+    finally:
+        trace.disable()
+    (span,) = [s for s in trace.take() if s.name == "dp.build"]
+    assert span.attrs == {"ctas": plan.C}
+    assert bc.dp_build.launches - n_b == 1
+    assert bc.dp_build.cluster_launches - n_c == int(cluster)
+    U_1, phi_1 = bc.dp_build_batched(stage[None], btilde[None], jump, B, smax, clusters=1)
+    assert bc.dp_build.cluster_launches - n_c == int(cluster)
+    for U, phi in ((U_k, phi_k), (U_1[0], phi_1[0])):
+        assert torch.equal(U, U_p)
+        assert torch.equal(phi.view(torch.int8), phi_p.view(torch.int8))
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     from mioc_tpu_torch.ops.backtrack_cuda import chase
     from mioc_tpu_torch.ops.bellman_cuda import dp_build
@@ -97,7 +148,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         dp_build(stage.t().contiguous().t(), btilde, jump, 12, smax)
     with pytest.raises(ValueError, match="shared memory"):
-        dp_build(stage, btilde, jump, 500, smax)  # 2·36·501·8 B > one block
+        dp_build(stage, btilde, jump, 7000, smax)  # 2·36·(10+438)·8 B > a 16-CTA slice
     U, phi0 = dp_build(stage, btilde, jump, 12, smax)
     with pytest.raises(ValueError, match="shapes"):
         chase(U[:-1].contiguous(), phi0, btilde, 12)

@@ -13,7 +13,8 @@ batched ODE sweeps (plain PyTorch versions on the CPU).
   slices per CTA, the halo pushed into the receiver's next Φ, one barrier
   per step, each entry read written in that step or poisoned) for C ∈ {1,
   2, 3, 16}, held bit for bit against the plain batched build and the JAX
-  package's scan and Pallas builds; and ``bellman_cuda.batched_build_plan``.
+  package's scan and Pallas builds; ``bellman_cuda.batched_build_plan``; and
+  the single-start build's plan and launch, the card's answers stubbed.
 
 The CUDA kernels are held against these plain versions on the card by
 ``chip_smoke.py`` and ``tests/test_torch_cuda.py``.
@@ -461,3 +462,116 @@ def test_batched_build_plan_takes_every_cluster_size(nt, L, B, smax, item):
             assert plan.R > 0
     with pytest.raises(ValueError, match="CTAs per start"):
         bc.batched_build_plan(3, nt, L, B, item, smax, clusters=min(16, B + 1) + 1)
+
+
+@pytest.fixture
+def card(monkeypatch):
+    """The card's two host-side answers stubbed: ``_kernels.device_index``
+    names card 0, and the occupancy query holds one cluster of up to
+    ``card.most`` CTAs (default 16); ``card.queries`` counts the queries.
+    The plan cache is empty before and after."""
+    from mioc_tpu_torch.ops import _kernels
+
+    class Card:
+        most = 16
+        queries = 0
+
+        def held(self, index, spec, *args):
+            self.queries += 1
+            return int(args[9] <= self.most)  # args[9]: the plan's C
+
+    stub = Card()
+    monkeypatch.setattr(_kernels, "device_index", lambda device=None: 0)
+    monkeypatch.setattr(_kernels, "clusters_held", stub.held)
+    bc._cluster_build_plan.cache_clear()
+    yield stub
+    bc._cluster_build_plan.cache_clear()
+
+
+# name, nt, L, B, smax: the single-start shapes of the three configurations,
+# large heat (nt 200, B 40) and heat at nt 1024.
+SINGLE_SHAPES = {
+    "heat500": (500, 36, 100, 10), "heat200": (200, 36, 40, 10),
+    "heat1024": (1024, 36, 204, 10), "conv": (2048, 5, 128, 4),
+    "fishing": (1024, 3, 170, 2), "heat-B60": (500, 36, 60, 10),
+    "heat-B30": (300, 36, 30, 10),
+}
+
+
+@pytest.mark.parametrize("name,most,C,width", [
+    ("heat500", 16, 16, 7), ("heat200", 16, 16, 3), ("heat1024", 16, 16, 13),
+    ("heat-B60", 16, 16, 4), ("heat-B30", 16, 16, 2),
+    ("conv", 16, 1, 129), ("fishing", 16, 1, 171),
+    ("heat500", 12, 12, 9), ("heat500", 1, 1, 101)])
+def test_single_build_plan(card, name, most, C, width):
+    """The plan B1 takes (``cluster_build_plan`` at S = 1): at heat scale 16
+    CTAs of ⌈(B+1)/16⌉ budgets, also where a slice is narrower than the
+    halo of smax = 10 (large heat: 3), lowered to what the card holds (12,
+    or one block where it holds none); conv and fishing one block, as
+    ``build_plan`` plans it, with no occupancy query."""
+    nt, L, B, smax = SINGLE_SHAPES[name]
+    card.most = most
+    plan = bc.cluster_build_plan(1, nt, L, B, 8, smax)
+    assert (plan.C, plan.width) == (C, width)
+    if C == 1:
+        assert plan.H == 0 and plan[3:] == tuple(bc.build_plan(nt, L, B, 8))
+        assert card.queries == (0 if L * L * (B + 1) < bc.CLUSTER_MIN_RELAX else 15)
+    else:
+        assert plan == bc.batched_build_plan(1, nt, L, B, 8, smax, clusters=C)
+        assert plan.H == smax
+        assert plan.smem <= bc.MAX_SMEM_BYTES
+
+
+@pytest.mark.parametrize("S,C", [(1, 16), (2, 16), (8, 16), (9, 14)])
+def test_one_start_takes_the_rule_of_every_start_count(S, C):
+    """At large heat (nt 200, B 40, smax 10) one start takes what S starts
+    take where S·16 CTAs fit the card's SMs: 16 CTAs of 3 budgets under a
+    halo of 10; one rule, with no branch of its own for S = 1."""
+    assert bc.batched_build_plan(S, 200, 36, 40, 8, 10).C == C
+
+
+@pytest.mark.parametrize("name", ["heat500", "heat200", "conv", "fishing"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_single_build_is_one_launch_of_the_batched_entry(card, monkeypatch, name, dtype):
+    """One ``dp_build`` call is one launch, of the batched entry at S = 1
+    under the single-start plan, counted on ``dp_build``; it never calls
+    ``bellman_cuda.dp_build_batched`` (the benchmark's spans wrap both
+    names, so a nested call would record one build twice).  A cluster launch
+    also advances ``dp_build.cluster_launches``, and the open ``dp.build``
+    span records the launch's CTAs.  The launch and the tensor checks are
+    stubbed: CPU tensors stand in for the card's."""
+    from mioc_tpu_torch.utils import trace
+    from mioc_tpu_torch.ops import _kernels
+
+    nt, L, B, smax = SINGLE_SHAPES[name]
+    launches = []
+    monkeypatch.setattr(_kernels, "check", lambda *a, **k: None)
+    monkeypatch.setattr(_kernels, "launch", lambda *a: launches.append(a))
+
+    def nested(*a, **k):
+        raise AssertionError("dp_build called dp_build_batched")
+
+    monkeypatch.setattr(bc, "dp_build_batched", nested)
+    stage = torch.zeros((nt, L), dtype=dtype)
+    btilde = torch.zeros((nt, L), dtype=torch.int32)
+    n_c = bc.dp_build.cluster_launches
+    trace.take()
+    trace.enable()
+    try:
+        with trace.span("dp.build"):
+            U, phi0 = bc.dp_build(stage, btilde, torch.zeros((L, L), dtype=dtype), B, smax)
+    finally:
+        trace.disable()
+    (span,) = trace.take()
+    assert U.shape == (nt - 1, L, B + 1) and U.dtype == tb.u_dtype(L)
+    assert phi0.shape == (L, B + 1) and phi0.dtype == dtype
+    plan = bc.cluster_build_plan(1, nt, L, B, stage.element_size(), smax)
+    ((wrapper, label, spec, device, *args),) = launches
+    assert (wrapper, label, spec, device) == (bc.dp_build, "dp_build", bc._BATCHED, stage.device)
+    assert args[5:] == [1, nt, L, B, smax, plan.R, int(plan.jsmem), plan.tpl, plan.K, plan.C,
+                        plan.H, stage.element_size(), U.element_size()]
+    assert [args[i] for i in (0, 1, 3, 4)] == [stage.data_ptr(), btilde.data_ptr(),
+                                               U.data_ptr(), phi0.data_ptr()]
+    assert bc.dp_build.cluster_launches - n_c == int(plan.C > 1)
+    assert (plan.C > 1) == name.startswith("heat")
+    assert span.attrs == {"ctas": plan.C}

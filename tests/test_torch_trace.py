@@ -103,6 +103,19 @@ def test_spans_take_attributes_and_take_clears():
     assert trace.take() == []
 
 
+def test_annotate_sets_the_innermost_open_span():
+    trace.annotate(k=0)  # off: nothing
+    trace.enable()
+    trace.annotate(k=1)  # no span open: nothing
+    with trace.span("outer"):
+        with trace.span("inner"):
+            trace.annotate(ctas=16)
+        trace.annotate(k=2)
+    trace.disable()
+    assert [(s.name, s.attrs) for s in trace.take()] == [
+        ("outer", {"k": 2}), ("inner", {"ctas": 16})]
+
+
 @pytest.mark.parametrize("name", sorted(SOLVES))
 def test_results_are_bit_identical_with_tracing_on(name):
     x0s = _x0s(3)
