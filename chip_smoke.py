@@ -113,7 +113,11 @@ heat paths of 7, ``heat_rows`` and ``pde_sweep``).  It builds the CUDA kernels f
       device-loop constants, through one ``dp_build`` and one
       ``chase_batched`` per iteration;
    d. ``doubletank``, ``vanderpol`` and ``fuller`` at ``--n 1024 --seed
-      0``: the JAX package's constants, J bit for bit;
+      0``: the JAX package's constants, J bit for bit; then ``vanderpol
+      --n 2000 --seed 0 --device-loop``, its published grid through the
+      device loop (``vanderpol_device_cli``): converged, through one
+      ``dp_build`` and one ``chase_batched`` per iteration and no sweep
+      kernel (its sweeps are PyTorch's);
    and prints where the time of (a) and (b) goes, the chases against the
    rest, with the A/B of the two chases at every shape;
 7. drives the heat problem, ``HeatObj(nt=500)`` (N = 545 P2 dofs from the
@@ -1220,9 +1224,25 @@ def cli_paths(torch, tmp) -> dict:
         require(n["dp_build"] == r["iterations"] and n["chase"] == r["f_evals"] - 1,
                 f"{problem}: launches {n}")
         out[problem] = r
+    out["vanderpol_device"] = vanderpol_device_cli(torch)
     for r in out.values():
         r.pop("u", None)
     return out
+
+
+def vanderpol_device_cli(torch) -> dict:
+    """``vanderpol --n 2000 --seed 0 --device-loop``: the CLI's run of the
+    Van der Pol problem on its published grid through the device loop."""
+    r = run_cli(torch, "vanderpol_device", ["vanderpol", "--n", "2000", "--seed", "0",
+                                            "--no-plot", "--no-log", "--device-loop"])
+    n = r["launches"]
+    require(r["converged"], "vanderpol --n 2000 --device-loop: converged")
+    require(n["dp_build"] == n["chase_batched"] == r["iterations"]
+            and n["chase"] == n["chase_trials"] == 0
+            and n["lvm_forward"] == n["lvm_adjoint"] == 0,
+            f"vanderpol_device: one dp_build and one chase_batched per iteration, "
+            f"no sweep kernel: {n}")
+    return r
 
 
 def check_multistarts(seq, spec, single):

@@ -52,6 +52,7 @@ from ..objectives.ode import RowwiseODEObjective, _numpy_dtype
 from ..ops import ode_cuda
 from ..ops.levels import bounded_sum_levels
 from ..ops.xla_order import const_dot, fma, window_sum
+from ..utils import trace
 
 __all__ = ["LVMObj"]
 
@@ -176,6 +177,7 @@ class LVMObj(RowwiseODEObjective):
     @sweep_span("f")
     def _forward_batch(self, xs):
         if xs.is_cuda:
+            trace.annotate(path="kernel")
             return ode_cuda.lvm_forward(self._couplings(xs), self.state0, self.alpha,
                                         self.beta, self.gamma, self.delta, self.tau)
         return self._forward_batch_torch(xs)
@@ -183,6 +185,7 @@ class LVMObj(RowwiseODEObjective):
     @sweep_span("df")
     def _adjoint_batch(self, xs, ys):
         if xs.is_cuda:
+            trace.annotate(path="kernel")
             return ode_cuda.lvm_adjoint(self._couplings(xs), ys,
                                         self._rules_on_device(xs.device), self.state0,
                                         self._v1, self._v2, self.alpha, self.beta, self.gamma,

@@ -27,7 +27,11 @@ has NaN, whatever its sign bit):
 
 The state is an ``(S, 2)`` tensor: 6 small ops a forward step and 13 an
 adjoint step, against 8 and 15 in the row form they replace (PyTorch
-operations that launch work, views not counted).  The tests
+operations that launch work, views not counted).  On the card each sweep
+after the first at its shape replays those ops from a CUDA graph
+(:mod:`~mioc_tpu_torch.ops.graphs`): the same kernels on the same operands,
+so the same bits, run back to back on the card instead of one host call
+each; only the mode coefficient ``cu`` (a few ops) is computed outside it.  The tests
 hold the bits at nt = 32 … 40, 48, 57, 240 and 1024 and sweep_unroll 1, 2, 4 and
 8 (``tests/test_torch_ode_bits.py``); below nt = 32 the JAX trapezoid sum is
 one fused reduction that rounds otherwise.  The adjoint steps JAX leaves
@@ -44,6 +48,7 @@ import torch
 from .._device import resolve_dtype
 from ..objectives.base import sweep_span
 from ..objectives.ode import RowwiseODEObjective, _numpy_dtype
+from ..ops.graphs import SweepGraphs
 from ..ops.levels import bounded_sum_levels
 from ..ops.xla_order import const_dot, fma, window_sum
 
@@ -69,6 +74,7 @@ class VPOObj(RowwiseODEObjective):
                          device=device, dtype=dtype)
         self._c = torch.as_tensor(self.c, device=self.device)
         self._tau_t = torch.tensor(self.tau, dtype=self.dtype, device=self.device)
+        self._graphs = SweepGraphs()
 
     # Dynamics (example_vanderpol.jl:48-66) on the last axis; the mode
     # coefficient cu = u·c depends on the control only.
@@ -112,10 +118,21 @@ class VPOObj(RowwiseODEObjective):
     # -- sweeps in the JAX package's CPU rounding (module docstring) -----------
     @sweep_span("f")
     def _forward_batch(self, xs):
+        return self._graphs(self._forward_steps, self._cu(xs))
+
+    @sweep_span("df")
+    def _adjoint_batch(self, xs, ys):
+        return self._graphs(self._adjoint_steps, xs, self._cu(xs), ys,
+                            key=self.scan_unroll())
+
+    def _cu(self, xs):
+        """The mode coefficient of every row and step, ``(nt, S, 1)``."""
+        return self.step_terms(xs).transpose(0, 1)[..., None].contiguous()
+
+    def _forward_steps(self, cu):
         tau, nt = self.tau, self.nt
-        S = xs.shape[0]
-        cu = self.step_terms(xs).transpose(0, 1)[..., None].contiguous()  # (nt, S, 1)
-        one = torch.ones((), dtype=xs.dtype, device=xs.device)
+        S = cu.shape[1]
+        one = torch.ones((), dtype=cu.dtype, device=cu.device)
         y0 = self.state0.expand(S, self.ny)
         y = y0
         ys = []
@@ -130,11 +147,9 @@ class VPOObj(RowwiseODEObjective):
         a, b = yall[..., 0], yall[..., 1]
         return tau * window_sum(self._trap_w * fma(a, a, b * b)), ys
 
-    @sweep_span("df")
-    def _adjoint_batch(self, xs, ys):
+    def _adjoint_steps(self, xs, cu, ys):
         nt = self.nt
         S = xs.shape[0]
-        cu = self.step_terms(xs).transpose(0, 1)[..., None].contiguous()  # (nt, S, 1)
         one = torch.ones((), dtype=xs.dtype, device=xs.device)
         minus_one = -one
         lam = -0.5 * self.tau * self.Gy(ys[-1], None, nt)  # ODEObjective.jl:165-166

@@ -37,7 +37,9 @@ def sweep_span(tag: str):
     """Decorate a batched sweep ``(self, xs (rows, nt, nx), ...)`` with the
     span ``<self._sweep_layer>.<tag>`` (:mod:`~mioc_tpu_torch.utils.trace`):
     ``rows`` passed, ``rows_swept`` computed (:meth:`Objective._rows_swept`,
-    padding included) and ``steps`` (:meth:`Objective._sweep_steps`)."""
+    padding included), ``steps`` (:meth:`Objective._sweep_steps`) and
+    ``path`` ``"torch"``, which a sweep that hands its recursion to one
+    kernel launch sets to ``"kernel"`` (:func:`~mioc_tpu_torch.utils.trace.annotate`)."""
     def wrap(fn):
         @functools.wraps(fn)
         def traced(self, xs, *args):
@@ -45,7 +47,8 @@ def sweep_span(tag: str):
                 return fn(self, xs, *args)
             rows = xs.shape[0]
             with trace.span(f"{self._sweep_layer}.{tag}", rows=rows,
-                            rows_swept=self._rows_swept(rows), steps=self._sweep_steps(rows)):
+                            rows_swept=self._rows_swept(rows), steps=self._sweep_steps(rows),
+                            path="torch"):
                 return fn(self, xs, *args)
         return traced
     return wrap

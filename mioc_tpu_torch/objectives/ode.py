@@ -26,7 +26,10 @@ these generic sweeps are bound by kernel-launch latency.  The bundled
 fishing model (:class:`~mioc_tpu_torch.models.fishing.LVMObj`) runs each
 sweep on the card, in float64 or float32, as one launch of ``csrc/ode_lvm.cu``
 (:mod:`~mioc_tpu_torch.ops.ode_cuda`), with the same bits as its PyTorch
-sweeps; the other bundled models still step op by op.
+sweeps; the Van der Pol model
+(:class:`~mioc_tpu_torch.models.vanderpol.VPOObj`) replays its per-step ops
+on the card from CUDA graphs (:mod:`~mioc_tpu_torch.ops.graphs`); the other
+bundled models still step op by op.
 
 Users implement ``F(y, u, i)`` and ``G(y, u, i)`` for one row only; the
 Jacobians default to ``torch.func`` (``jacfwd``, ``vjp``, ``grad``) of those,

@@ -71,6 +71,7 @@ from ..fem.sparse_device import cg_solve_rows
 from ..ops import pde_cuda
 from ..ops.rows import ROWS, chunked
 from ..ops.tv import fold_sum
+from ..utils import trace
 from .base import LazyObjective, sweep_span
 
 __all__ = ["PDEObjective", "COST_ROWS"]
@@ -431,6 +432,7 @@ class PDEObjective(LazyObjective):
         row or None (0): all ``(nt+1, R, N)`` iterates (:meth:`_sweep`), by
         the kernel where it serves."""
         if self._dense_kernel():
+            trace.annotate(path="kernel")
             return pde_cuda.dense_sweep(v_end, drive.contiguous(), op, reverse)
         R = drive.shape[1]
         return self._sweep(0.0 if v_end is None else v_end, _pad_rows(drive), op,

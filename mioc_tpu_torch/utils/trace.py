@@ -37,7 +37,14 @@ span                      where                                         attribut
 ``trm.stage``             ``stage_tables``
 ``trm.tv``                the device loop's ``tv_rows``/``iv_rows``
 ``<layer>.f``,            an objective's ``_forward_batch``,            ``rows``, ``rows_swept``
-``<layer>.df``            ``_adjoint_batch``                            (padding included), ``steps``
+``<layer>.df``            ``_adjoint_batch``                            (padding included), ``steps``,
+                                                                        ``path``: ``"kernel"`` where
+                                                                        one hand-written launch
+                                                                        computed the recursion
+                                                                        (``ops/ode_cuda.py``,
+                                                                        ``ops/pde_cuda.py``), set where
+                                                                        the objective dispatches, else
+                                                                        ``"torch"``
 ``dp.build``              the build dispatchers of ``ops/bellman.py``   on the card ``ctas``: the CTAs
                                                                         of a start (1: one block), set
                                                                         by the launch
